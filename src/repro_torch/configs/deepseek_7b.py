@@ -1,0 +1,17 @@
+"""deepseek-7b — dense llama-arch [arXiv:2401.02954; hf]."""
+
+from .base import ModelConfig, register
+
+DEEPSEEK_7B = register(ModelConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=102400,
+    activation="swiglu",
+    rope_theta=10000.0,
+))
