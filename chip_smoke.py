@@ -8,32 +8,43 @@ result line, without them.  Imports nothing of jax and nothing of the JAX
 package.  Phases (none catches a failure):
 
   1. the card: nvidia-smi's name and power limit, torch's device name
-  2. build both kernels from ``src/repro_torch/csrc`` (one nvcc each, in
+  2. build all five kernels from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel); print build seconds and ptxas register/smem/spill lines
-  3. each kernel against its plain version on the card, float32 and
-     bfloat16, at the shapes the main path gives it (attention is held
-     against the plain version in float32 on the same inputs, tolerances
-     ``cases.PAGED_TOL``; the error against the bfloat16 plain version is
-     printed beside it): max error, exact-match
-     counts, kernel / plain / library ms (CUDA events, L2 flushed between
-     launches), and the bound from this run's inputs
+  3. each kernel against its plain version on the card at the shapes the
+     serving paths give it: max error, exact-match counts, kernel / plain /
+     library ms (CUDA events, L2 flushed between launches), and the bound
+     from this run's inputs.  Attention (paged and tree, float32 and
+     bfloat16) is held against the plain version in float32 on the same
+     inputs, tolerances ``cases.PAGED_TOL``, the error against the bfloat16
+     plain version printed beside it; a chain-masked tree window must also
+     equal paged attention at lengths + 1.  The samplers must agree except
+     where ``u * Z`` lies within rounding of a CDF step (float64 check).
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
-     weights and draws: identical committed tokens
-  5. the main path at full width: Llama-2-7B verifying TinyLlama-1.1B drafts
+     weights and draws, three sequential rounds then three tree rounds
+     (J=1 through the tree machinery, J=2, J=3): identical committed tokens
+  5. the J=1 path at full width: Llama-2-7B verifying TinyLlama-1.1B drafts
      in bfloat16, paged (page_size 16, max_len 1024), under a
      ``MultiSpinCell`` (scheme hete) with 8 requests of 128-token prompts
      asking 64 new tokens each; rounds until drain or 20; per round: every
-     unmasked stream commits >= 1 token, both kernels' launch counters grow,
-     both plain counters stay 0, both page pools pass their invariants,
-     exactly one host sync; then 3 more rounds under torch.profiler: device
-     busy share and the kernels that take the time
-  6. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
+     unmasked stream commits >= 1 token, the path's kernels' launch
+     counters grow (paged_attention, fused_verify_sample), every plain
+     counter stays 0, both page pools pass their invariants, exactly one
+     host sync; then 3 more rounds under torch.profiler: device busy share
+     and the kernels that take the time
+  6. the tree path at full width: the same pair and requests under a
+     ``MultiSpinCell(scheme="multidraft", J_min=2, J_max=3)`` on a fresh
+     engine (the J=1 engine is freed first); per round as in 5 with
+     ``draft_width >= 2``, the kernels paged_attention, paged_tree_attention,
+     gather_softmax_prob and residual_sample, and exactly two host syncs;
+     then 3 profiled rounds
+  7. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
      line ``{"ok": true, "device": {...}}``
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -56,6 +67,20 @@ PAGED_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
 VERIFY_CASES = [("llama pair, V=32000", (8, 8, 32000, 64)),
                 ("qwen3.5 pair, V=151936", (8, 8, 151936, 64))]
 VERIFY_HEADLINE = "llama pair, V=32000"
+TREE_ROUNDS = 20
+TREE_CASES = [
+    # name, (B, J, L, H, KV, D, ps, ctx), chain: T = J*L + 1
+    ("llama2-7b tree window J=2 L=6", (8, 2, 6, 32, 32, 128, 16, 512), False),
+    ("llama2-7b ceiling J=6 L=8", (8, 6, 8, 32, 32, 128, 16, 512), False),
+    ("llama2-7b chain T=13", (8, 2, 6, 32, 32, 128, 16, 512), True),
+]
+TREE_HEADLINE = ("llama2-7b tree window J=2 L=6", "bfloat16")
+SOFTMAX_CASES = [("tree nodes J=2 L=6", (96, 32000)),
+                 ("ceiling J=6 L=8", (384, 32000)),
+                 ("qwen3.5 vocab", (96, 151936))]
+SOFTMAX_HEADLINE = "tree nodes J=2 L=6"
+RESIDUAL_CASES = [("llama vocab", (8, 32000)), ("qwen3.5 vocab", (8, 151936))]
+RESIDUAL_HEADLINE = "llama vocab"
 
 
 def log(*args):
@@ -151,11 +176,144 @@ def check_kernels(torch, cases, pa, fvs):
     return paged, verify
 
 
+def check_tree_kernels(torch, cases, pa, pta, gsp, rs):
+    """Phase 3, the tree round's kernels against their plain versions;
+    returns (tree, softmax, residual) records."""
+    tree = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, shape, chain in TREE_CASES:
+        B, J, L = shape[:3]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cases.tree_case(*shape, dtype=dtype, device="cuda",
+                                   chain=chain)
+            got = pta.paged_tree_attention_cuda(*args).float()
+            want = cases.tree_attention_held(*args)
+            plain = pta.paged_tree_attention_plain(*args).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            err_plain = float((got - plain).abs().max())
+            rtol, atol = cases.PAGED_TOL[dtype]
+            close = torch.allclose(got, want, rtol=rtol, atol=atol)
+            err_b1 = None
+            if chain:       # the sequential window: B1 at lengths + 1
+                q, kp, vp, pt, ln, _ = args
+                b1 = pa.paged_attention_cuda(q, kp, vp, pt, ln + 1).float()
+                err_b1 = float((got - b1).abs().max())
+            n_bytes, n_ops = cases.tree_work(*args)
+            bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
+            sq, sk, sv, smask = cases.tree_sdpa_inputs(*args)
+            rec = {
+                "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "shape": dict(zip("B J L H KV D ps ctx".split(), shape),
+                              T=J * L + 1, chain=chain),
+                "max_abs_err": err, "rtol": rtol, "atol": atol,
+                "max_abs_err_vs_plain_same_dtype": err_plain,
+                "max_abs_err_vs_paged_attention": err_b1,
+                "ms": cases.time_ms(lambda: pta.paged_tree_attention_cuda(*args)),
+                "plain_ms": cases.time_ms(
+                    lambda: pta.paged_tree_attention_plain(*args), iters=10),
+                "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
+                                                         attn_mask=smask)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": n_bytes, "ops": n_ops,
+            }
+            log(f"paged_tree_attention {name:30s} {rec['dtype']:8s} "
+                f"max|err| {err:.3e} vs f32 plain (rtol {rtol}, atol {atol}), "
+                f"{err_plain:.3e} vs {rec['dtype']} plain"
+                + (f", {err_b1:.3e} vs paged_attention" if chain else "")
+                + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+                f"sdpa {rec['library_ms']:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            if not close:
+                raise AssertionError(f"paged_tree_attention {name} {dtype}: "
+                                     f"kernel disagrees with plain, max|err| {err}")
+            if chain and err_b1 != 0.0:
+                raise AssertionError(f"paged_tree_attention {name} {dtype}: a "
+                                     f"chain mask differs from paged_attention "
+                                     f"by {err_b1}")
+            tree.append(rec)
+    try:                        # the kernel's limit is refused, not mis-run
+        over = cases.tree_case(1, 8, 8, 4, 2, 16, 16, 40, torch.float32, "cuda")
+        pta.paged_tree_attention_cuda(*over)
+        raise AssertionError("paged_tree_attention accepted a 65-token window")
+    except ValueError as e:
+        log(f"paged_tree_attention T=65 refused: {e}")
+
+    softmax = []
+    rtol, atol = cases.GATHER_TOL
+    for name, (N, V) in SOFTMAX_CASES:
+        logits, ids = cases.softmax_case(N, V, "cuda")
+        got = gsp.gather_softmax_prob_cuda(logits, ids)
+        want = gsp.gather_softmax_prob_plain(logits, ids)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+        n_bytes, n_ops = cases.softmax_work(logits, ids)
+        bound_ms, bound_by = cases.bound(n_bytes, n_ops, torch.float32)
+        rec = {
+            "case": name, "shape": {"N": N, "V": V}, "max_abs_err": err,
+            "max_rel_err": rel, "rtol": rtol, "atol": atol,
+            "ms": cases.time_ms(lambda: gsp.gather_softmax_prob_cuda(logits, ids)),
+            "plain_ms": cases.time_ms(
+                lambda: gsp.gather_softmax_prob_plain(logits, ids), iters=10),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "ops": n_ops,
+        }
+        log(f"gather_softmax_prob {name:22s} N={N} V={V}  max|err| {err:.3e} "
+            f"(rel {rel:.3e}; rtol {rtol}, atol {atol})  kernel {rec['ms']:.4f} ms  "
+            f"plain {rec['plain_ms']:.4f} ms  library none  "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"gather_softmax_prob {name}: max|err| {err}, "
+                                 f"max relative err {rel}")
+        softmax.append(rec)
+
+    residual = []
+    for name, (N, V) in RESIDUAL_CASES:
+        p, q, u = cases.residual_case(N, V, "cuda")
+        got = rs.residual_sample_cuda(p, q, u)
+        want = rs.residual_sample_plain(p, q, u)
+        torch.cuda.synchronize()
+        rep = cases.compare_residual(got, want, p, q, u)
+        z = (p - q).clamp(min=0).sum(-1).cpu()
+        n_bytes, n_ops = cases.residual_work(p, q, u, want)
+        bound_ms, bound_by = cases.bound(n_bytes, n_ops, torch.float32)
+        rec = {
+            "case": name, "shape": {"N": N, "V": V},
+            "max_abs_err": rep["max_abs_err"], "equal_rows": rep["equal_rows"],
+            "diff_rows": rep["diff_rows"],
+            "diff_rows_at_cdf_step": rep["diff_rows_at_cdf_step"],
+            "rows_zero_residual": int((z <= 0).sum()),
+            "rows_no_crossing": int((u.cpu() >= 1).sum()),
+            "ms": cases.time_ms(lambda: rs.residual_sample_cuda(p, q, u)),
+            "plain_ms": cases.time_ms(lambda: rs.residual_sample_plain(p, q, u),
+                                      iters=10),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "ops": n_ops,
+        }
+        log(f"residual_sample {name:16s} N={N} V={V}  equal {rep['equal_rows']}/{N} "
+            f"(differing rows {rep['diff_rows']} at a CDF step: "
+            f"{rep['diff_rows_at_cdf_step']})  Z=0 rows {rec['rows_zero_residual']}  "
+            f"no-crossing rows {rec['rows_no_crossing']}  kernel {rec['ms']:.4f} ms  "
+            f"plain {rec['plain_ms']:.4f} ms  library none  "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        tok = got.cpu()
+        if not rep["diff_rows_at_cdf_step"]:
+            raise AssertionError(f"residual_sample {name}: {rep}")
+        if not (int(tok[0]) == int(p[0].argmax()) and int(tok[2]) == V - 1
+                and int(tok[1]) == int(p[1].argmax())):
+            raise AssertionError(f"residual_sample {name}: the Z = 0 rows must "
+                                 f"give the first argmax of p and the row "
+                                 f"where nothing crosses V - 1: {tok.tolist()}")
+        residual.append(rec)
+    return tree, softmax, residual
+
+
 def reference_check(torch, np):
     """Phase 4: the smoke-size engine on the card against the same engine on
     the CPU (plain versions), same weights and draws."""
     from repro_torch.configs import get_config
-    from repro_torch.core.draws import RoundDraws
+    from repro_torch.core.draws import RoundDraws, TreeDraws
     from repro_torch.serving import SpecEngine
 
     tcfg = get_config("qwen2.5-3b").smoke()
@@ -178,10 +336,22 @@ def reference_check(torch, np):
             draws = RoundDraws.sample(100 + r, 3, max(lengths), 64, 257,
                                       device="cpu").to(dev)
             st, _, _ = eng.spin_round(st, np.asarray(lengths), draws)
+        # tree rounds: J=1 through the tree machinery, then J=2 and J=3
+        for r, (J, lengths) in enumerate(((1, [4, 2, 3]), (2, [3, 4, 2]),
+                                          (3, [2, 3, 4]))):
+            L = max(lengths)
+            draws = (RoundDraws.sample(200 + r, 3, L, 64, 257, device="cpu")
+                     if J == 1 else
+                     TreeDraws.sample(200 + r, 3, J, L, 64, 257, device="cpu"))
+            st, _, _ = eng.spin_round(st, np.asarray(lengths), draws.to(dev),
+                                      draft_width=J, tree=True)
+            eng.t_pages.check_invariants()
+            eng.d_pages.check_invariants()
         committed[dev] = [[int(t) for t in c] for c in st.committed]
     same = committed["cpu"] == committed["cuda"]
-    log(f"reference check (smoke engine, 3 rounds): card == CPU committed "
-        f"tokens: {same}; lengths {[len(c) for c in committed['cuda']]}")
+    log(f"reference check (smoke engine, 3 sequential + 3 tree rounds): card "
+        f"== CPU committed tokens: {same}; lengths "
+        f"{[len(c) for c in committed['cuda']]}")
     if not same:
         raise AssertionError(f"card {committed['cuda']} != CPU {committed['cpu']}")
 
@@ -194,9 +364,12 @@ def _to(torch, tree, device):
     return [_to(torch, v, device) for v in tree]
 
 
-def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, device="cuda",
-              K=8, M=128, NEW=64, max_len=1024):
-    """Phase 5: the port's serving path at full width, through the cell."""
+def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
+              scheme_params, path_ops, syncs, min_width, n_rounds,
+              device="cuda", K=8, M=128, NEW=64, max_len=1024):
+    """Phases 5 and 6: one serving path at full width, through the cell.
+    ``path_ops`` are the kernels every round must launch; every plain
+    counter must stay 0.  Returns (launch counts, per-round records)."""
     from repro_torch.api import (
         CellConfig,
         ChannelConfig,
@@ -216,13 +389,14 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, device="cuda",
                             device=device, dtype=torch.int32)
     state = engine.start(prompts)
     torch.cuda.synchronize()
-    log(f"main path: weights + prefill of {K}x{M} in "
+    log(f"{label}: weights + prefill of {K}x{M} in "
         f"{time.perf_counter() - t0:.2f} s; pool {engine.num_pages} pages; "
         f"params target {engine.target.num_params(engine.t_params)} "
-        f"draft {engine.draft.num_params(engine.d_params)}")
+        f"draft {engine.draft.num_params(engine.d_params)}; device memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     backend = EngineBackend(engine, state)
     rng = np.random.default_rng(0)
-    cfg = CellConfig(scheme="hete",
+    cfg = CellConfig(scheme=scheme, scheme_params=dict(scheme_params),
                      channel=ChannelConfig(vocab_size=tcfg.vocab_size),
                      t_ver_fix=0.035, t_ver_lin=0.0177, L_max=8, max_batch=K)
     cell = MultiSpinCell(cfg, backend=backend, rng=rng)
@@ -236,7 +410,7 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, device="cuda",
     torch.cuda.synchronize()
     ops.reset_counts()
     rounds, total_tokens, total_s = [], 0, 0.0
-    for i in range(MAIN_ROUNDS):
+    for i in range(n_rounds):
         before = ops.counts()
         h0 = engine.host_syncs
         lens0 = [len(c) if c is not None else 0 for c in backend.state.committed]
@@ -251,36 +425,42 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, device="cuda",
         acc = np.asarray(rec.accepted)
         grew = [len(c) - l0 for c, l0 in zip(backend.state.committed, lens0)]
         assert (acc[active] >= 1).all(), f"round {i}: a stream committed nothing"
-        for op in ops.OPS:
+        assert rec.draft_width >= min_width, (i, rec.draft_width)
+        for op in path_ops:
             assert after[op]["kernel"] > before[op]["kernel"], (i, op, after)
+        for op in ops.OPS:
             assert after[op]["plain"] == 0, (i, op, after)
         engine.t_pages.check_invariants()
         engine.d_pages.check_invariants()
-        assert engine.host_syncs - h0 == 1, f"round {i}: {engine.host_syncs - h0} syncs"
+        assert engine.host_syncs - h0 == syncs, \
+            f"round {i}: {engine.host_syncs - h0} syncs"
         assert sum(grew) == int(acc.sum()), (grew, acc)
         total_tokens += int(acc.sum())
         total_s += dt
-        rounds.append({"round": i, "ms": 1e3 * dt, "lengths": rec.lengths.tolist(),
+        rounds.append({"round": i, "ms": 1e3 * dt, "J": int(rec.draft_width),
+                       "lengths": rec.lengths.tolist(),
                        "accepted": acc.tolist(), "committed": int(acc.sum())})
-        log(f"round {i:2d}: {1e3 * dt:9.2f} ms  L={rec.lengths.tolist()}  "
-            f"accepted={acc.tolist()}  committed {int(acc.sum())}  "
-            f"active {len(cell.scheduler.active)}")
+        log(f"{label} round {i:2d}: {1e3 * dt:9.2f} ms  J={rec.draft_width}  "
+            f"L={rec.lengths.tolist()}  accepted={acc.tolist()}  committed "
+            f"{int(acc.sum())}  active {len(cell.scheduler.active)}")
     counts = ops.counts()
-    for op in ops.OPS:
-        assert counts[op]["kernel"] > 0 and counts[op]["plain"] == 0, counts
-    profile_rounds(torch, cell, PROFILE_ROUNDS)
+    for op in path_ops:
+        assert counts[op]["kernel"] > 0, counts
+    assert all(c["plain"] == 0 for c in counts.values()), counts
+    profile_rounds(torch, cell, PROFILE_ROUNDS, label)
     vocab = tcfg.vocab_size
     for c in backend.state.committed:
         assert c is None or all(0 <= int(t) < vocab for t in c)
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path: {len(rounds)} rounds, {total_tokens} tokens in "
+    log(f"{label}: {len(rounds)} rounds, {total_tokens} tokens in "
         f"{total_s:.3f} s wall = {total_tokens / total_s:.2f} tokens/s; "
+        f"mean round {1e3 * total_s / len(rounds):.2f} ms; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
         f"summary {cell.summary()}")
     return counts, rounds
 
 
-def profile_rounds(torch, cell, n):
+def profile_rounds(torch, cell, n, label):
     """Phase 5b: ``n`` more rounds of the same session under torch.profiler
     (after the checked rounds, so their counts are not mixed in): device
     busy time against host wall time, the kernels that take it, and the
@@ -298,7 +478,7 @@ def profile_rounds(torch, cell, n):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t)
     if not done:
-        log("profile: the session had drained; nothing profiled")
+        log(f"{label} profile: the session had drained; nothing profiled")
         return
     avgs = prof.key_averages()
 
@@ -309,7 +489,7 @@ def profile_rounds(torch, cell, n):
     kernels = [e for e in avgs if dev_us(e) > 0
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels)
-    log(f"profile: {done} rounds, wall {wall_us / 1e3 / done:.2f} ms/round "
+    log(f"{label} profile: {done} rounds, wall {wall_us / 1e3 / done:.2f} ms/round "
         f"(profiler on), device busy {busy / 1e3 / done:.2f} ms/round, "
         f"idle share {1 - busy / wall_us:.3f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
@@ -335,7 +515,10 @@ def main() -> int:
 
     from repro_torch.kernels import build, cases, ops
     from repro_torch.kernels import fused_verify_sample as fvs
+    from repro_torch.kernels import gather_softmax_prob as gsp
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_tree_attention as pta
+    from repro_torch.kernels import residual_sample as rs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -357,26 +540,46 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     paged, verify = check_kernels(torch, cases, pa, fvs)
+    tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
 
     # 4. small-input reference check
     reference_check(torch, np)
 
-    # 5. the main path
+    # 5. the J=1 path, then 6. the tree path, each on its own engine
     from repro_torch.configs import get_config
 
     bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
-    counts, rounds = main_path(
-        torch, np, ops, get_config("llama2-7b").replace(**bf16),
-        get_config("tinyllama-1.1b").replace(**bf16), torch.bfloat16)
+    pair = (get_config("llama2-7b").replace(**bf16),
+            get_config("tinyllama-1.1b").replace(**bf16), torch.bfloat16)
+    runs = {}
+    runs["j1"] = main_path(
+        torch, np, ops, *pair, label="J=1 path", scheme="hete",
+        scheme_params={}, path_ops=("paged_attention", "fused_verify_sample"),
+        syncs=1, min_width=1, n_rounds=MAIN_ROUNDS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"J=1 engine freed: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    runs["tree"] = main_path(
+        torch, np, ops, *pair, label="tree path", scheme="multidraft",
+        scheme_params={"J_min": 2, "J_max": 3},
+        path_ops=("paged_attention", "paged_tree_attention",
+                  "gather_softmax_prob", "residual_sample"),
+        syncs=2, min_width=2, n_rounds=TREE_ROUNDS)
 
-    # 6. result lines
-    head = next(r for r in paged if (r["case"], r["dtype"]) == PAGED_HEADLINE)
-    vhead = next(r for r in verify if r["case"] == VERIFY_HEADLINE)
+    # 7. result lines
+    def pick(recs, case, dtype=None):
+        return next(r for r in recs if r["case"] == case
+                    and (dtype is None or r["dtype"] == dtype))
 
     def entry(name, source, replaces, rec, recs):
+        per_round = {path: counts[name]["kernel"] / len(rounds)
+                     for path, (counts, rounds) in runs.items()
+                     if counts[name]["kernel"]}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name]["kernel"],
-                "launches_per_round": counts[name]["kernel"] / len(rounds),
+                "replaces": replaces,
+                "launches": sum(c[name]["kernel"] for c, _ in runs.values()),
+                "launches_per_round": per_round,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -384,12 +587,22 @@ def main() -> int:
                 "headline_case": f"{rec['case']} {rec.get('dtype', 'float32')}",
                 "cases": recs}
 
+    csrc, tpu = "src/repro_torch/csrc", "src/repro/kernels"
     kernels = [
-        entry("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:114", head, paged),
-        entry("fused_verify_sample",
-              "src/repro_torch/csrc/fused_verify_sample.cu",
-              "src/repro/kernels/fused_verify_sample.py:181", vhead, verify),
+        entry("paged_attention", f"{csrc}/paged_attention.cu",
+              f"{tpu}/paged_attention.py:114", pick(paged, *PAGED_HEADLINE),
+              paged),
+        entry("fused_verify_sample", f"{csrc}/fused_verify_sample.cu",
+              f"{tpu}/fused_verify_sample.py:181", pick(verify, VERIFY_HEADLINE),
+              verify),
+        entry("paged_tree_attention", f"{csrc}/paged_tree_attention.cu",
+              f"{tpu}/tree_attention.py:256", pick(tree, *TREE_HEADLINE), tree),
+        entry("gather_softmax_prob", f"{csrc}/gather_softmax_prob.cu",
+              f"{tpu}/gather_softmax_prob.py:75",
+              pick(softmax, SOFTMAX_HEADLINE), softmax),
+        entry("residual_sample", f"{csrc}/residual_sample.cu",
+              f"{tpu}/residual_sample.py:91", pick(residual, RESIDUAL_HEADLINE),
+              residual),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("paged_attention", "fused_verify_sample")
+KERNELS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
+           "gather_softmax_prob", "residual_sample")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -26,16 +26,25 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
+# GPU clock cycles of the spin that precedes each timed call (~2 ms at the
+# H100's 1.98 GHz): longer than the host takes to enqueue any call timed here
+SPIN_CYCLES = 4_000_000
+
+
 def time_ms(fn, iters: int = 50, warmup: int = 5, flush_mb: int = 64) -> float:
     """Mean device time of ``fn()`` in ms from CUDA events around each call,
     with the 50 MB L2 cache flushed (a ``flush_mb`` buffer rewritten)
-    between calls, outside the timed window."""
+    between calls, outside the timed window.  Before each call the card
+    spins for ``SPIN_CYCLES``, so the host has enqueued the whole call when
+    the start event fires: the window holds device time, not the wrapper's
+    host time (which exceeds a small kernel's own)."""
     flush = torch.empty(flush_mb << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -190,11 +199,7 @@ def residual_boundary_ok(row_args, n_acc: int, tok_a: int, tok_b: int,
     p = torch.softmax(logits[sel].double(), -1)
     q = torch.zeros_like(p).index_add_(0, q_idx[sel].long(),
                                        q_val[sel].double())
-    cdf = (p - q).clamp(min=0).cumsum(0)
-    z = float(cdf[-1])
-    target = float(u_res) * z
-    lo, hi = sorted((int(tok_a), int(tok_b)))
-    return bool(((cdf[lo:hi] - target).abs() <= rel * z).all())
+    return cdf_step_ok(p, q, u_res, tok_a, tok_b, rel)
 
 
 def compare_verify(kernel_out, plain_out, args) -> dict:
@@ -218,4 +223,194 @@ def compare_verify(kernel_out, plain_out, args) -> dict:
                                  int(cal_k[b]), int(cal_p[b])) for b in diff),
         "n_acc": n_k.tolist(),
         "draft_len": host[-1].tolist(),
+    }
+
+
+# ---------------------------------------------------------------------------
+# paged tree attention
+# ---------------------------------------------------------------------------
+
+def tree_mask(B: int, J: int, L: int, seed: int = 0) -> torch.Tensor:
+    """(B, J*L+1, J*L+1) bool ancestor-or-self window mask of the token trees
+    ``build_token_tree`` packs from J random drafts of length L per row.
+    Tokens come from a 3-letter alphabet, so drafts share prefixes of every
+    length and diverge; the last row drafts L - 2 tokens (dead padding
+    nodes)."""
+    import numpy as np
+
+    from repro_torch.core.token_tree import build_token_tree
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 3, (B, J, L))
+    lengths = np.full(B, L)
+    if B > 1 and L > 2:
+        lengths[-1] = L - 2
+    zeros = np.zeros((B, J, L, 1))
+    tree = build_token_tree(toks, zeros[..., 0], zeros.astype(np.int32), zeros,
+                            lengths)
+    return torch.from_numpy(tree.window_mask().copy())
+
+
+def tree_case(B, J, L, H, KV, D, ps, ctx, dtype, device, seed=0, holes=True,
+              chain=False):
+    """Tree-window inputs (q, k_pool, v_pool, page_table, lengths, win_mask)
+    of a T = J*L+1 window: the pools and table of ``paged_case`` at T (each
+    row maps its committed ``lengths`` plus the window), lengths the
+    committed count, the mask from ``tree_mask`` (or lower-triangular with
+    ``chain``, where the op equals paged attention at lengths + 1)."""
+    T = J * L + 1
+    q, kp, vp, pt, ln = paged_case(B, T, H, KV, D, ps, ctx, dtype, device,
+                                   seed=seed, holes=holes)
+    if chain:
+        mask = torch.tril(torch.ones((T, T), dtype=torch.bool)).expand(B, T, T)
+    else:
+        mask = tree_mask(B, J, L, seed=seed)
+    return q, kp, vp, pt, ln - 1, mask.contiguous().to(device)
+
+
+def tree_attention_held(q, k_pool, v_pool, page_table, lengths, win_mask):
+    """The plain version in float32 on the same inputs (as
+    ``paged_attention_held``)."""
+    from .paged_tree_attention import paged_tree_attention_plain
+
+    return paged_tree_attention_plain(q.float(), k_pool.float(),
+                                      v_pool.float(), page_table, lengths,
+                                      win_mask)
+
+
+def _tree_visible(page_table, lengths, win_mask, ps):
+    """(B, T, S) bool: the keys each query row sees (mapped, committed or an
+    allowed window position), on the host."""
+    pt, ln, wm = page_table.cpu().long(), lengths.cpu().long(), win_mask.cpu()
+    B, T = wm.shape[:2]
+    S = pt.shape[1] * ps
+    kpos = torch.arange(S)
+    w = kpos[None] - ln[:, None]
+    in_win = (w >= 0) & (w < T)
+    allow = wm.gather(2, w.clamp(0, T - 1)[:, None].expand(B, T, S))
+    mapped = (pt >= 0).repeat_interleave(ps, dim=1)
+    return (((kpos[None] < ln[:, None])[:, None] | (allow & in_win[:, None]))
+            & mapped[:, None])
+
+
+def tree_work(q, k_pool, v_pool, page_table, lengths, win_mask):
+    """(bytes, operations) tree attention needs for these inputs: q, the
+    output, table, lengths and mask once, every K/V page some row can see
+    (mapped, below lengths + T) across all kv heads, and 4*D operations per
+    visible (query head, key)."""
+    B, T, H, D = q.shape
+    P, ps, KV, _ = k_pool.shape
+    pt, ln = page_table.cpu().long(), lengths.cpu().long()
+    item = q.element_size()
+    n_bytes = (2 * q.numel() * item + pt.numel() * 4 + ln.numel() * 4
+               + win_mask.numel())
+    live = ((pt >= 0) & (torch.arange(pt.shape[1])[None] * ps
+                         < (ln + T)[:, None])).sum()
+    n_bytes += int(live) * 2 * ps * KV * D * item
+    ops = 4 * H * D * int(_tree_visible(page_table, lengths, win_mask, ps).sum())
+    return n_bytes, ops
+
+
+def tree_sdpa_inputs(q, k_pool, v_pool, page_table, lengths, win_mask):
+    """The same attention as one library call's operands: ``paged_sdpa_inputs``
+    with the (B, 1, T, S) boolean mask of the keys each tree row sees.
+    Built once, outside any timing."""
+    sq, sk, sv, _ = paged_sdpa_inputs(q, k_pool, v_pool, page_table, lengths)
+    mask = _tree_visible(page_table, lengths, win_mask, k_pool.shape[1])
+    return sq, sk, sv, mask.to(q.device)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# gather softmax prob, residual sample
+# ---------------------------------------------------------------------------
+
+# (rtol, atol) of gather_softmax_prob against its plain version: relative
+# only, since most picked probabilities are ~1/V and would all pass under an
+# absolute band of the same size; 2e-5 is the float32 band of
+# ``tests/test_kernels.py`` (the normalizer sums in another order), below
+# the 1/V share of one dropped key
+GATHER_TOL = (2e-5, 0.0)
+
+
+def softmax_case(N, V, device, seed=0):
+    """(logits (N, V) float32, ids (N,) int32): logits ~ 3 N(0, 1).  Row 0
+    picks its argmax, row 1 its argmin; from row 2 on, by n % 4: 2 picks the
+    median logit, 3 the logit of rank n // 4 from the top (p ~ 1e-2..1e-4),
+    0 and 1 a random one."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    logits = torch.randn((N, V), generator=g) * 3
+    ids = torch.randint(0, V, (N,), generator=g)
+    order = logits.argsort(-1, descending=True)
+    for n in range(N):
+        rank = {0: 0, 1: V - 1}.get(n, {2: V // 2, 3: n // 4}.get(n % 4))
+        if rank is not None:
+            ids[n] = order[n, min(rank, V - 1)]
+    return logits.to(device), ids.to(device, torch.int32)
+
+
+def softmax_work(logits, ids) -> tuple[int, int]:
+    """(bytes, operations): every logit once, ids in and probabilities out;
+    a compare, an exp and an add per logit."""
+    N, V = logits.shape
+    return N * V * 4 + 8 * N, 3 * N * V
+
+
+def residual_case(N, V, device, seed=0, vhat=64):
+    """(p, q, u) float32 rows of the calibrated-token step: p a softmax
+    row, q a dense row scattered from a top-``vhat`` draft distribution (as
+    ``verify_tree`` builds it), u uniform.  Row 0 has q == p (Z = 0:
+    argmax(p)), row 1 has two tied maxima of p and q == p (the first index
+    wins), row 2 has u = 1.5 so nothing crosses (V - 1); the rest reject
+    with a live residual."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p = torch.softmax(torch.randn((N, V), generator=g) * 3, -1)
+    d = torch.softmax(torch.randn((N, V), generator=g) * 3, -1)
+    val, idx = d.topk(vhat, -1)
+    q = torch.zeros_like(p).scatter_add_(1, idx, val / val.sum(-1, keepdim=True))
+    u = torch.rand((N,), generator=g)
+    q[0] = p[0]
+    if N > 1:
+        top = p[1].argmax()
+        p[1, (top + V // 2) % V] = p[1, top]
+        q[1] = p[1]
+    if N > 2:
+        u[2] = 1.5
+    return p.to(device), q.to(device), u.to(device)
+
+
+def residual_work(p, q, u, tokens) -> tuple[int, int]:
+    """(bytes, operations): p and q once, u in and tokens out; sweep 1 does
+    a subtract, a max, an add and a compare per entry, sweep 2 a subtract, a
+    max and an add per entry up to the crossing (``tokens`` of this run's
+    data; rows with a zero residual stop after sweep 1)."""
+    N, V = p.shape
+    live = ((p - q).clamp(min=0).sum(-1) > 0).cpu()
+    swept = int(((tokens.cpu().long() + 1) * live).sum())
+    return 2 * N * V * 4 + 8 * N, 4 * N * V + 3 * swept
+
+
+def cdf_step_ok(p, q, u, tok_a: int, tok_b: int, rel: float = 1e-4) -> bool:
+    """Whether two residual samples of ONE row differ only because u * Z
+    lies within rounding of a CDF step: in float64, every CDF value between
+    the two tokens is within ``rel * Z`` of u * Z."""
+    cdf = (p.double() - q.double()).clamp(min=0).cumsum(0)
+    z = float(cdf[-1])
+    target = float(u) * z
+    lo, hi = sorted((int(tok_a), int(tok_b)))
+    return bool(((cdf[lo:hi] - target).abs() <= rel * z).all())
+
+
+def compare_residual(got, want, p, q, u) -> dict:
+    """Exact-match report of residual_sample against its plain version:
+    rows that differ are listed with whether each is a CDF-step case."""
+    got, want = got.cpu(), want.cpu()
+    hp, hq, hu = p.cpu(), q.cpu(), u.cpu()
+    diff = (got != want).nonzero().flatten().tolist()
+    return {
+        "max_abs_err": float((got.long() - want.long()).abs().max()),
+        "equal_rows": int((got == want).sum()),
+        "diff_rows": diff,
+        "diff_rows_at_cdf_step": all(
+            cdf_step_ok(hp[b], hq[b], hu[b], got[b], want[b]) for b in diff),
+        "tokens": got.tolist(),
     }

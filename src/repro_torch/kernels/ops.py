@@ -1,4 +1,4 @@
-"""Public entry points of the kernels on the J=1 paged serving path.
+"""Public entry points of the kernels on the paged serving path.
 
 Each op dispatches by the device of its tensors, with no switch and no
 fallback: a CUDA tensor launches the hand-written CUDA kernel (and raises if
@@ -15,10 +15,16 @@ import torch
 from repro_torch.obs import trace
 
 from . import fused_verify_sample as _fvs
+from . import gather_softmax_prob as _gsp
 from . import paged_attention as _pa
+from . import paged_tree_attention as _pta
+from . import residual_sample as _rs
 
-OPS = ("paged_attention", "fused_verify_sample")
-_MODULES = {"paged_attention": _pa, "fused_verify_sample": _fvs}
+OPS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
+       "gather_softmax_prob", "residual_sample")
+_MODULES = {"paged_attention": _pa, "fused_verify_sample": _fvs,
+            "paged_tree_attention": _pta, "gather_softmax_prob": _gsp,
+            "residual_sample": _rs}
 _plain_calls = {name: 0 for name in OPS}
 
 
@@ -98,4 +104,56 @@ def fused_verify_sample(target_logits, draft_tokens, draft_probs, q_idx,
                 target_logits, draft_tokens, draft_probs, q_idx, q_val,
                 u_accept, u_resid, draft_len)
         sp.attach(out[2])
+    return out
+
+
+def paged_tree_attention(q, k_pool, v_pool, page_table, lengths, win_mask):
+    """Token-tree window attention through a paged KV cache.
+
+    q: (B, T, H, D) with T <= 64; pools: (P, ps, KV, D); page_table:
+    (B, n_slots) int32 (-1 = unmapped); lengths: (B,) int32 committed kv
+    count (every row attends [0, lengths)); win_mask: (B, T, T) bool, row t
+    also attends window position lengths + t' where win_mask[b, t, t'].
+    Returns (B, T, H, D).
+    """
+    route = _route(q)
+    with _span("ops.paged_tree_attention", q, route) as sp:
+        if route == "cuda":
+            out = _pta.paged_tree_attention_cuda(q, k_pool, v_pool, page_table,
+                                                 lengths, win_mask)
+        else:
+            _plain_calls["paged_tree_attention"] += 1
+            out = _pta.paged_tree_attention_plain(q, k_pool, v_pool,
+                                                  page_table, lengths,
+                                                  win_mask)
+        sp.attach(out)
+    return out
+
+
+def gather_softmax_prob(logits, token_ids):
+    """logits (N, V) float32; token_ids (N,) int32 -> softmax(logits)[token]
+    (N,) float32, without materializing the softmax."""
+    route = _route(logits)
+    with _span("ops.gather_softmax_prob", logits, route) as sp:
+        if route == "cuda":
+            out = _gsp.gather_softmax_prob_cuda(logits, token_ids)
+        else:
+            _plain_calls["gather_softmax_prob"] += 1
+            out = _gsp.gather_softmax_prob_plain(logits, token_ids)
+        sp.attach(out)
+    return out
+
+
+def residual_sample(p, q, u):
+    """p, q (N, V) float32 probability rows; u (N,) float32 uniforms ->
+    tokens (N,) int32 from normalize(max(p - q, 0)) by inverse CDF
+    (argmax(p) when the residual is all zero)."""
+    route = _route(p)
+    with _span("ops.residual_sample", p, route) as sp:
+        if route == "cuda":
+            out = _rs.residual_sample_cuda(p, q, u)
+        else:
+            _plain_calls["residual_sample"] += 1
+            out = _rs.residual_sample_plain(p, q, u)
+        sp.attach(out)
     return out

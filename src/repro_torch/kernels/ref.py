@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the kernels on the J=1 paged serving path.
+"""Plain PyTorch versions of the kernels on the paged serving path.
 
 Each function is the semantic ground truth of one hand-written CUDA kernel
 in ``csrc/``: the CPU path of ``ops.py`` runs it, and the card tests hold
 the kernel against it on the same inputs.  The functions mirror the JAX
-package's oracles operation for operation, with one deliberate difference
-noted at ``paged_attention_ref``.
+package's oracles operation for operation, with the deliberate differences
+noted at ``paged_attention_ref`` and ``paged_tree_attention_ref`` (rows
+that see no key).
 """
 
 from __future__ import annotations
@@ -51,6 +52,58 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     valid = kpos[None, None, :] < horizon[:, :, None]              # (B, T, S)
     mapped = (page_table >= 0).repeat_interleave(ps, dim=1)       # (B, S)
     valid = valid & mapped[:, None, :]
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.full((), _NEG, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    seen = valid.any(dim=-1)[:, None, None, :, None]              # (B,1,1,T,1)
+    probs = torch.where(seen, probs, torch.zeros((), device=q.device))
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
+    return out.reshape(B, T, H, D)
+
+
+def paged_tree_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, page_table: torch.Tensor,
+                             lengths: torch.Tensor, win_mask: torch.Tensor,
+                             scale: float | None = None) -> torch.Tensor:
+    """Token-tree verification window through a paged KV cache.
+
+    q: (B, T, H, D) — the T-token tree window (slot 0 the pending token,
+        slots 1.. the tree nodes in construction order).
+    k_pool / v_pool: (P, ps, KV, D); the window's K/V are already written at
+        logical positions [lengths_b, lengths_b + T).
+    page_table: (B, n_slots) int32 (-1 = unmapped: masked out).
+    lengths: (B,) committed kv count — every query row attends [0, lengths_b).
+    win_mask: (B, T, T) bool — query row t attends window position
+        lengths_b + t' iff win_mask[b, t, t'] (the tree's ancestor-or-self
+        matrix; a lower-triangular mask is ``paged_attention_ref`` at
+        lengths + 1).
+    Returns (B, T, H, D).
+
+    Unmapped slots are masked and a row that sees no key returns 0, as in
+    the Pallas kernel.  The JAX oracle gathers through ``max(table, 0)``
+    without a mapped test, so a retired row (all -1, lengths > 0) attends
+    page 0 there; such rows are never committed.
+    """
+    B, T, H, D = q.shape
+    P, ps, KV, _ = k_pool.shape
+    n_slots = page_table.shape[1]
+    S = n_slots * ps
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    safe = page_table.clamp(min=0).long()
+    k = k_pool[safe].reshape(B, S, KV, D)
+    v = v_pool[safe].reshape(B, S, KV, D)
+    qg = q.reshape(B, T, KV, G, D)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k).float() * scale
+    kpos = torch.arange(S, device=q.device)
+    base = lengths.long()[:, None]                                 # (B, 1)
+    committed = (kpos[None, :] < base)[:, None, :]                 # (B, 1, S)
+    w = kpos[None, :] - base                                       # (B, S)
+    in_win = (w >= 0) & (w < T)
+    idx = w.clamp(0, T - 1)[:, None, :].expand(B, T, S)
+    allow = win_mask.bool().gather(2, idx) & in_win[:, None, :]    # (B, T, S)
+    mapped = (page_table >= 0).repeat_interleave(ps, dim=1)       # (B, S)
+    valid = (committed | allow) & mapped[:, None, :]
     logits = torch.where(valid[:, None, None], logits,
                          torch.full((), _NEG, device=q.device))
     probs = torch.softmax(logits, dim=-1)

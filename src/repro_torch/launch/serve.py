@@ -97,7 +97,8 @@ def main(argv=None):
         rec = cell.step()
         if rec is None:
             break
-        print(f"round {i}: L={rec.lengths} accepted={rec.accepted} "
+        print(f"round {i}: J={rec.draft_width} L={rec.lengths} "
+              f"accepted={rec.accepted} "
               f"goodput={rec.realized_goodput:.1f} tok/s "
               f"active={len(cell.scheduler.active)}")
     s = cell.scheduler.stats

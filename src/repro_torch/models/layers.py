@@ -3,9 +3,10 @@
 Functional like the JAX package: parameters are plain dicts of tensors with
 the same names and layouts, and projections compute ``x @ W`` with W shaped
 (in, out), so parameters carried across from the JAX package need no
-transpose.  Only the dense path of the J=1 paged serving slice is here; the
-contiguous cache layout, token-tree windows and MoE are not ported yet
-(ROADMAP A2, A7, A12).
+transpose.  Only the dense paged path is here: sequential windows (prefill,
+draft steps, J=1 verification) and token-tree windows (J > 1 rounds), with
+the K/V window gather/scatter of the tree scatter-commit.  The contiguous
+cache layout and MoE are not ported yet (ROADMAP A2, A12).
 """
 
 from __future__ import annotations
@@ -206,17 +207,12 @@ def paged_update_kv_cache(pool: torch.Tensor, new: torch.Tensor, offset,
     """
     B, T = new.shape[:2]
     P, ps = pool.shape[:2]
-    n_slots = page_table.shape[1]
     offset = torch.as_tensor(offset, device=pool.device)
     if offset.dim() == 0:
         offset = offset.expand(B)
     pos = (offset[:, None].to(torch.int64)
            + torch.arange(T, device=pool.device)[None, :])
-    slot = torch.div(pos, ps, rounding_mode="floor")
-    phys = page_table.to(torch.int64).gather(1, slot.clamp(0, n_slots - 1))
-    ok = (phys >= 0) & (slot < n_slots)
-    flat = torch.where(ok, phys * ps + pos % ps,
-                       torch.full((), P * ps, device=pool.device))
+    flat = _drop_or_flat(pos, page_table, ps, P)
     _flat_with_drop_slot(pool).index_copy_(
         0, flat.reshape(-1),
         new.to(pool.dtype).reshape((B * T,) + tuple(new.shape[2:])))
@@ -232,15 +228,99 @@ def paged_gather_kv(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tenso
     return gathered.reshape((B, n_slots * ps) + tuple(pool.shape[2:]))
 
 
+def _window_flat(pos: torch.Tensor, page_table: torch.Tensor, ps: int):
+    """(physical page, table slot, in-page offset) of each logical position
+    ``pos`` (B, T) through ``page_table``, all int64; unmapped entries give
+    a negative page, slots past the table read its last entry."""
+    n_slots = page_table.shape[1]
+    pos = pos.long()
+    slot = torch.div(pos, ps, rounding_mode="floor")
+    phys = page_table.long().gather(1, slot.clamp(0, n_slots - 1))
+    return phys, slot, pos % ps
+
+
+def _drop_or_flat(pos: torch.Tensor, page_table: torch.Tensor, ps: int,
+                  P: int, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat pool index (page * ps + offset) of each logical position; those
+    through -1 entries, past the table or not ``valid`` get the drop slot's
+    index P * ps."""
+    phys, slot, off = _window_flat(pos, page_table, ps)
+    ok = (phys >= 0) & (slot < page_table.shape[1])
+    if valid is not None:
+        ok = ok & valid
+    return torch.where(ok, phys * ps + off,
+                       torch.full((), P * ps, device=pos.device))
+
+
+def gather_kv_window(leaf: torch.Tensor, pos: torch.Tensor,
+                     page_table: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather K/V rows at logical positions ``pos`` (B, T) from a stacked
+    page pool (Ln, P, ps, KV, D) through ``page_table`` (B, n_slots).
+    Out-of-range and unmapped positions clamp to a valid slot; callers mask
+    by validity.  Returns a new (Ln, B, T, KV, D) tensor.  The contiguous
+    layout (no table) is not ported yet (ROADMAP A2)."""
+    if page_table is None:
+        raise NotImplementedError(
+            "the contiguous cache layout is not ported yet (ROADMAP A2)")
+    ps = leaf.shape[2]
+    phys, _, off = _window_flat(pos, page_table, ps)
+    return leaf.flatten(1, 2)[:, phys.clamp(min=0) * ps + off]
+
+
+def scatter_kv_window(leaf: torch.Tensor, values: torch.Tensor,
+                      pos: torch.Tensor, valid: torch.Tensor,
+                      page_table: torch.Tensor | None = None) -> torch.Tensor:
+    """Write ``values`` (Ln, B, T, KV, D) into a stacked page pool at logical
+    positions ``pos`` (B, T) where ``valid`` (B, T), IN PLACE.  Invalid,
+    out-of-range and unmapped positions go to each layer's drop slot (the
+    contract of ``paged_update_kv_cache``).  This is the scatter-commit
+    primitive: the engine moves the accepted tree branch's K/V into its
+    committed slots instead of re-forwarding the path.  ``values`` must not
+    alias ``leaf`` (gather first).  Returns ``leaf``."""
+    if page_table is None:
+        raise NotImplementedError(
+            "the contiguous cache layout is not ported yet (ROADMAP A2)")
+    P, ps = leaf.shape[1:3]
+    flat = _drop_or_flat(pos, page_table, ps, P, valid).reshape(-1)
+    for layer, vals in zip(leaf, values.to(leaf.dtype).flatten(1, 2)):
+        _flat_with_drop_slot(layer).index_copy_(0, flat, vals)
+    return leaf
+
+
+def tree_window_mask(pos: torch.Tensor, window_mask: torch.Tensor,
+                     S_max: int) -> torch.Tensor:
+    """(B, 1, 1, T, S_max) attention mask of a token-tree window written at
+    cache positions [pos_b, pos_b + T): query row t attends every committed
+    position [0, pos_b) plus window position pos_b + t' iff
+    ``window_mask[b, t, t']`` (the tree's ancestor-or-self matrix).  With a
+    lower-triangular matrix this is the causal window mask.  The serving
+    path runs ``ops.paged_tree_attention`` instead; this is the dense form
+    the tests compare against."""
+    B, T = window_mask.shape[:2]
+    kj = torch.arange(S_max, device=window_mask.device)
+    pos = pos.long()
+    committed = kj[None, None, :] < pos[:, None, None]            # (B, 1, S)
+    w = kj[None, :] - pos[:, None]                                # (B, S)
+    in_win = (w >= 0) & (w < T)
+    idx = w.clamp(0, T - 1)[:, None, :].expand(B, T, S_max)
+    allow = window_mask.bool().gather(2, idx)                     # (B, T, S)
+    return (committed | (allow & in_win[:, None, :]))[:, None, None]
+
+
 def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, positions: torch.Tensor,
                     rope_theta: float | None, kv_cache, cache_offset,
-                    page_table: torch.Tensor | None):
-    """Attention layer of a sequential window through a paged KV cache.
+                    page_table: torch.Tensor | None,
+                    window_mask: torch.Tensor | None = None):
+    """Attention layer of a window through a paged KV cache.
 
     The window's keys and values are written at ``cache_offset`` through
-    ``page_table`` (in place), then ``ops.paged_attention`` attends row t to
-    logical positions [0, cache_offset + t].  Returns (out, (k_pool,
+    ``page_table`` (in place).  A sequential window (no ``window_mask``)
+    then runs ``ops.paged_attention``: row t attends logical positions
+    [0, cache_offset + t].  A token-tree window (``window_mask`` (B, T, T),
+    the ancestor-or-self matrix) runs ``ops.paged_tree_attention``: row t
+    attends [0, cache_offset) plus the window positions its mask allows —
+    its lengths are the offset, not offset + 1.  Returns (out, (k_pool,
     v_pool)).  Caches without a page table (the contiguous layout) are not
     ported yet (ROADMAP A2)."""
     if kv_cache is None or page_table is None:
@@ -255,10 +335,15 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
     k_pool, v_pool = kv_cache
     paged_update_kv_cache(k_pool, k, cache_offset, page_table)
     paged_update_kv_cache(v_pool, v, cache_offset, page_table)
-    offset = torch.as_tensor(cache_offset, device=x.device)
-    lengths = (offset.expand(B) + 1).to(torch.int32).contiguous()
-    ctx = kops.paged_attention(q.to(k_pool.dtype).contiguous(), k_pool,
-                               v_pool, page_table, lengths)
+    offset = torch.as_tensor(cache_offset, device=x.device).expand(B)
+    q = q.to(k_pool.dtype).contiguous()
+    if window_mask is not None:
+        ctx = kops.paged_tree_attention(
+            q, k_pool, v_pool, page_table,
+            offset.to(torch.int32).contiguous(), window_mask)
+    else:
+        ctx = kops.paged_attention(q, k_pool, v_pool, page_table,
+                                   (offset + 1).to(torch.int32).contiguous())
     out = ctx.to(x.dtype).reshape(B, S, num_heads * head_dim) @ params["wo"]
     return out, (k_pool, v_pool)
 

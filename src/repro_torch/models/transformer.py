@@ -5,14 +5,17 @@ The port of ``repro.models.transformer.DecoderLM`` for ``family="dense"``:
   * ``prefill``        — causal forward that writes the paged KV cache at
     offset 0
   * ``forward_window`` — T new tokens against the paged cache at per-row
-    offsets: T=1 is a draft step, T=L+1 the speculative-verification window
+    offsets: T=1 is a draft step, T=L+1 the speculative-verification window,
+    and with ``window_mask`` / ``window_depth`` a token-tree window of a
+    multi-draft round
 
 Parameters keep the JAX package's names and (in, out) layouts, but the
 layers are a python list of per-layer dicts instead of arrays stacked on a
 leading axis; ``bridge.params_from_jax`` converts one into the other.  The
 layer loop is a plain python loop (the counterpart of ``jax.lax.scan``).
-Attention goes through ``ops.paged_attention``: the CUDA kernel on the
-card, its plain version on the CPU.  Caches are updated in place.
+Attention goes through ``ops.paged_attention`` (``ops.paged_tree_attention``
+for tree windows): the CUDA kernel on the card, its plain version on the
+CPU.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -130,7 +133,8 @@ class DecoderLM:
     # Forward
     # ------------------------------------------------------------------
 
-    def _stack_forward(self, params, x, positions, cache, offset):
+    def _stack_forward(self, params, x, positions, cache, offset,
+                       window_mask=None):
         """Run all blocks through the paged cache; returns (hidden, cache)."""
         cfg = self.cfg
         if "pages" not in cache:
@@ -144,7 +148,7 @@ class DecoderLM:
                 num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                 positions=positions, rope_theta=cfg.rope_theta,
                 kv_cache=(cache["k"][i], cache["v"][i]), cache_offset=offset,
-                page_table=page_table)
+                page_table=page_table, window_mask=window_mask)
             x = x + attn_out
             h = self.norm(p["ln_mlp"], x)
             x = x + mlp_apply(p["mlp"], h, cfg.activation)
@@ -179,17 +183,29 @@ class DecoderLM:
 
         tokens: (B, T); pos: (B,) per-row write offsets (current lengths).
         T=1 -> draft step; T=L+1 -> speculative-verification scoring.
-        Returns (logits (B, T, V) float32, cache).  Token-tree windows
-        (``window_mask`` / ``window_depth``) are not ported yet (ROADMAP A7).
+        Returns (logits (B, T, V) float32, cache).
+
+        Token-TREE windows (multi-draft verification) pass ``window_mask``
+        (B, T, T) bool, the tree's ancestor-or-self matrix, and
+        ``window_depth`` (B, T) node depths: window token t keeps cache slot
+        pos + t but takes rope position pos + depth_t and attends committed
+        KV plus its in-window ancestors only.  A lower-triangular mask with
+        depths 0..T-1 is the sequential window.  A ``window_depth`` without
+        a ``window_mask`` is refused: its rope positions would be out of
+        step with the row-index mask of the sequential kernel.
         """
-        if window_mask is not None or window_depth is not None:
-            raise NotImplementedError(
-                "token-tree windows are not ported yet (ROADMAP A7)")
+        if window_depth is not None and window_mask is None:
+            raise ValueError("window_depth needs the tree's window_mask")
         x = self._embed(params, tokens)
         B, T, _ = x.shape
         pos = torch.as_tensor(pos, device=x.device)
-        positions = pos[:, None].long() + torch.arange(T, device=x.device)[None]
-        x, cache = self._stack_forward(params, x, positions, cache, pos)
+        if window_depth is None:
+            offsets = torch.arange(T, device=x.device)[None]
+        else:
+            offsets = torch.as_tensor(window_depth, device=x.device).long()
+        positions = pos[:, None].long() + offsets
+        x, cache = self._stack_forward(params, x, positions, cache, pos,
+                                       window_mask=window_mask)
         return self._logits(params, x), cache
 
     def num_params(self, params) -> int:

@@ -90,9 +90,11 @@ class EngineBackend:
     (as the JAX backend does for its PRNG key), so the cell's rng stream and
     every plan stay aligned with the reference.  By default that integer
     seeds a ``torch.Generator`` on the engine's device
-    (``RoundDraws.sample``); ``draws_fn(seed, B, L, vhat, V)`` replaces it
-    with a caller's own ``RoundDraws`` (the parity tests replay the JAX
-    package's draws this way).  Synthetic prompts (requests without
+    (``RoundDraws.sample``, or ``TreeDraws.sample`` for a multi-draft round
+    of width J > 1); ``draws_fn(seed, B, L, vhat, V)`` replaces it with a
+    caller's own ``RoundDraws``, and ``draws_fn(seed, B, L, vhat, V, J=J)``
+    with its ``TreeDraws`` (the parity tests replay the JAX package's draws
+    this way).  Synthetic prompts (requests without
     ``prompt``) come from a ``torch.Generator`` seeded by the rid.
     """
 
@@ -208,25 +210,26 @@ class EngineBackend:
 
     # -- the verification step ------------------------------------------
 
-    def _draws(self, seed: int, B: int, L: int):
-        from repro_torch.core.draws import RoundDraws
+    def _draws(self, seed: int, B: int, L: int, J: int):
+        from repro_torch.core.draws import RoundDraws, TreeDraws
 
         V = self.engine.target_cfg.vocab_size
+        dev = self.engine.device
         if self.draws_fn is not None:
-            return self.draws_fn(seed, B, L, self.vhat, V).to(self.engine.device)
-        return RoundDraws.sample(seed, B, L, self.vhat, V,
-                                 device=self.engine.device)
+            kw = {} if J == 1 else {"J": J}
+            return self.draws_fn(seed, B, L, self.vhat, V, **kw).to(dev)
+        if J == 1:
+            return RoundDraws.sample(seed, B, L, self.vhat, V, device=dev)
+        return TreeDraws.sample(seed, B, J, L, self.vhat, V, device=dev)
 
     def verify(self, lengths: np.ndarray, requests: Sequence,
                rng: np.random.Generator, key=None,
                mask: np.ndarray | None = None,
                draft_width: int = 1) -> np.ndarray:
         """One round for ``requests``.  ``key`` (an integer seed) replaces
-        the draw from ``rng``."""
-        if int(draft_width) > 1:
-            raise NotImplementedError(
-                "token-tree rounds (draft_width > 1) are not ported yet "
-                "(ROADMAP A7)")
+        the draw from ``rng``.  ``draft_width`` J > 1 runs the engine's
+        token-tree round."""
+        J = int(draft_width)
         lengths = np.asarray(lengths, dtype=np.int64)
         rows = [self._row(r) for r in requests]
         B = self.batch_size
@@ -239,14 +242,15 @@ class EngineBackend:
             # engine streams must not advance with discarded tokens
             freeze[np.asarray(rows)[~np.asarray(mask, dtype=bool)]] = True
         seed = int(rng.integers(2 ** 31)) if key is None else int(key)
-        draws = self._draws(seed, B, int(full.max()))
+        draws = self._draws(seed, B, int(full.max()), J)
         args = None if trace.active() is None else {
             "B": B, "K": len(rows), "L_max": int(lengths.max()),
-            "J": int(draft_width)}
+            "J": J}
         h0 = int(getattr(self.engine, "host_syncs", 0))
         with trace.span("engine.verify", cat="engine", args=args) as sp:
             self.state, res, _ = self.engine.spin_round(
-                self.state, full, draws, vhat=self.vhat, freeze=freeze)
+                self.state, full, draws, vhat=self.vhat, freeze=freeze,
+                draft_width=J)
             sp.attach(res.output_len)
         self.last_round_host_syncs = \
             int(getattr(self.engine, "host_syncs", 0)) - h0

@@ -15,12 +15,15 @@ J=1 round (paper Fig. 2):
 Both models' KV lives in fixed-size pages of a preallocated pool
 (``PagedKVCache``): streams may join after ``start()`` (``add_streams``)
 and leave (``retire_stream``), and admission is bounded by the page pool
-(``can_admit``).  Randomness is an input: each round consumes one
-``core.draws.RoundDraws``.
+(``can_admit``).  ``draft_width`` J > 1 runs the multi-draft TOKEN-TREE
+round instead (``_spin_round_tree``): J drafts per stream packed into a
+prefix-deduplicated tree, scored in ONE ancestor-masked target pass, the
+longest accepted root-to-leaf path committed.  Randomness is an input: each
+round consumes one ``core.draws.RoundDraws`` (J=1) or ``TreeDraws``.
 
 Not ported yet, each raising ``NotImplementedError``: the contiguous cache
-layout (ROADMAP A2), token-tree rounds J > 1 (A7), compiled modes and
-``warmup`` (A9), SSM/hybrid models (A13).
+layout (ROADMAP A2), compiled modes and ``warmup`` (A9), SSM/hybrid models
+(A13).
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.draws import RoundDraws
-from repro_torch.core.drafting import generate_drafts
-from repro_torch.core.verification import verify_drafts
+from repro_torch.core.draws import RoundDraws, TreeDraws
+from repro_torch.core.drafting import generate_draft_forest, generate_drafts
+from repro_torch.core.token_tree import TreeScratch, build_token_tree
+from repro_torch.core.verification import verify_drafts, verify_tree
 from repro_torch.models import build_model
+from repro_torch.models.layers import gather_kv_window, scatter_kv_window
 from repro_torch.models.transformer import strip_view
 from repro_torch.obs import trace
 
@@ -49,6 +54,11 @@ from .kv_cache import (
 )
 
 CACHE_KINDS = ("paged",)
+
+# what ``_host_fetch`` packs into 32-bit words: float32 by bit view, integers
+# by value (the int64 ones are token ids, counts and positions, below 2**31)
+_FETCH_DTYPES = (torch.float32, torch.int64, torch.int32, torch.int16,
+                 torch.int8, torch.uint8, torch.bool)
 
 
 def _span(name: str, args: dict | None = None):
@@ -88,17 +98,26 @@ class SpecEngine:
     both models' KV caches advance only over committed tokens.
 
     ``spin_round`` is one protocol round; ``draft_rows`` / ``verify_rows``
-    / ``commit_rows`` are the same round in its three pieces.  Tensors
+    / ``commit_rows`` are the same J=1 round in its three pieces.  Tensors
     live on ``device`` (the card unless the caller asks for the CPU);
-    attention and verification dispatch through ``kernels.ops``."""
+    attention and verification dispatch through ``kernels.ops``.
+
+    ``tree_commit``: how the accepted branch of a tree round reaches the
+    caches.  ``"scatter"`` (default) gathers the winning branch's K/V from
+    the already-written tree window (target) and the winning run's window
+    snapshot (draft) and scatters it to the committed positions — no extra
+    forward pass; ``"repair"`` re-forwards [pending, accepted path] through
+    both models.  Both commit identical tokens."""
 
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  max_len: int = 512, cache_dtype=torch.float32,
                  cache_kind: str = "paged", page_size: int = 16,
-                 num_pages: int | None = None, compile_mode: str | None = None,
-                 device="cuda"):
+                 num_pages: int | None = None, tree_commit: str = "scatter",
+                 compile_mode: str | None = None, device="cuda"):
         assert target_cfg.vocab_size == draft_cfg.vocab_size, \
             "SLM/LLM pair must share a vocabulary"
+        if tree_commit not in ("scatter", "repair"):
+            raise ValueError("tree_commit must be 'scatter' or 'repair'")
         if cache_kind == "contiguous":
             raise NotImplementedError(
                 "the contiguous cache layout is not ported yet (ROADMAP A2); "
@@ -121,6 +140,7 @@ class SpecEngine:
         self.max_len = max_len
         self.cache_dtype = cache_dtype
         self.cache_kind = cache_kind
+        self.tree_commit = tree_commit
         self.page_size = int(page_size)
         self.pages_per_stream = -(-max_len // self.page_size)
         self.num_pages = num_pages
@@ -135,13 +155,35 @@ class SpecEngine:
         self.host_syncs = 0
         # host-side accepted counts of the last commit
         self.last_accepted: np.ndarray | None = None
+        self._tree_scratch = TreeScratch()
 
-    def _host_fetch(self, value: torch.Tensor) -> np.ndarray:
-        """Blocking device->host fetch.  The ONE per-round call site is the
-        packed commit emission in ``commit_rows``."""
+    def _host_fetch(self, *values: torch.Tensor):
+        """Blocking device->host fetch, counted.  The ONE per-round call
+        site of a J=1 round is the packed commit emission in
+        ``commit_rows``; tree rounds add the host-side trie build and
+        (repair mode) the accepted-depth fetch.  Several tensors travel as
+        one transfer: each is flattened to 32-bit words (float32 by bit
+        view, integers by value), the words concatenated and copied once,
+        and the arrays rebuilt on the host."""
         self.host_syncs += 1
         trace.incr("engine.host_sync")
-        return value.cpu().numpy()
+        if len(values) == 1:
+            return values[0].cpu().numpy()
+        for v in values:
+            if v.dtype not in _FETCH_DTYPES:
+                raise TypeError(f"_host_fetch packs float32 and integer "
+                                f"tensors of at most 32 bits, not {v.dtype}")
+        words = [v.reshape(-1).view(torch.int32) if v.dtype == torch.float32
+                 else v.reshape(-1).to(torch.int32) for v in values]
+        flat = torch.cat(words).cpu().numpy()
+        out, i = [], 0
+        for v in values:
+            chunk = flat[i:i + v.numel()]
+            i += v.numel()
+            if v.dtype == torch.float32:
+                chunk = chunk.view(np.float32)
+            out.append(chunk.reshape(tuple(v.shape)))
+        return tuple(out)
 
     # ------------------------------------------------------------------
 
@@ -423,7 +465,7 @@ class SpecEngine:
         return new_state, accepted
 
     def spin_round(self, state: StreamState, lengths: np.ndarray,
-                   draws: RoundDraws, vhat: int = 64,
+                   draws: RoundDraws | TreeDraws, vhat: int = 64,
                    freeze: np.ndarray | None = None, draft_width: int = 1,
                    tree: bool | None = None):
         """One Multi-SPIN round with per-stream draft lengths (zero-padded to
@@ -431,20 +473,217 @@ class SpecEngine:
         (L = max(lengths), B = batch rows, vhat, V).  Returns (state,
         VerifyResult, DraftResult).
 
+        ``draft_width`` J > 1 runs the TOKEN-TREE round instead (the
+        ``multidraft`` scheme, ``_spin_round_tree``) and takes ``TreeDraws``
+        of width J.  ``tree=True`` forces the tree machinery at J = 1: given
+        a sequential round's ``RoundDraws`` it commits bit-identical tokens
+        to the sequential path (tested), so it is only useful for testing.
+
         ``freeze`` marks streams that must NOT advance this round.  Frozen
         rows still ride through the batched forwards but commit nothing;
         their stale window writes land in their own slack slots (or drop,
         for retired rows).  Live rows extend their page mappings to cover
-        the L+1 window up front and hand back every page past the accepted
-        prefix afterwards.  ``draft_width`` J > 1 (token trees) is not
-        ported yet (ROADMAP A7)."""
-        if draft_width > 1 or tree:
-            raise NotImplementedError(
-                "token-tree rounds (draft_width > 1) are not ported yet "
-                "(ROADMAP A7)")
+        the window up front and hand back every page past the accepted
+        prefix afterwards."""
+        if tree is None:
+            tree = draft_width > 1
+        if tree:
+            if isinstance(draws, RoundDraws):
+                draws = TreeDraws.from_round(draws)
+            return self._spin_round_tree(state, lengths, draws, vhat=vhat,
+                                         freeze=freeze, J=int(draft_width))
         ticket = self.draft_rows(state, lengths, draws.draft_gumbel,
                                  vhat=vhat, freeze=freeze)
         ticket = self.verify_rows(state, ticket, draws.u_accept,
                                   draws.u_resid, draws.bonus_gumbel)
         new_state, _ = self.commit_rows(state, ticket)
         return new_state, ticket.res, ticket.draft
+
+    # ------------------------------------------------------------------
+    # token-tree multi-draft round (SpecInfer-style verification)
+    # ------------------------------------------------------------------
+
+    def _upload(self, array) -> torch.Tensor:
+        """A host array on the device, as a copy: on the CPU
+        ``host_to_device`` shares memory, and the trie arrays alias the
+        ``TreeScratch`` pool that the next round's build overwrites."""
+        return host_to_device(np.array(array, copy=True), self.device)
+
+    def _spin_round_tree(self, state: StreamState, lengths: np.ndarray,
+                         draws: TreeDraws, vhat: int,
+                         freeze: np.ndarray | None, J: int):
+        """One multi-draft round: J drafts per stream, packed into a
+        prefix-deduplicated token tree, scored in ONE ancestor-masked target
+        pass, longest accepted root-to-leaf path committed.
+
+        Cache discipline: the W+1 tree window (W = J * L) occupies target
+        positions [pos, pos + W] in construction order while each node keeps
+        its tree DEPTH as rope position; after acceptance the winning
+        branch's K/V are SCATTERED from their tree-window positions (target)
+        and the winning run's window snapshot (draft) into the committed
+        positions — ``tree_commit="repair"`` instead re-forwards [pending,
+        accepted path] through both models (committed tokens are identical
+        either way: they are decided before the cache fix-up).  Every page
+        past the accepted prefix (all dead branches) goes back to the pool.
+        At J = 1 the tree is a chain, the window IS the sequential window,
+        and no fix-up runs.  Host syncs per round: 2 (scatter, or J = 1),
+        3 (repair, J > 1).
+        """
+        if draws.J != J:
+            raise ValueError(f"draws of width {draws.J} for a J={J} round")
+        B = int(state.pending.shape[0])
+        lengths = np.asarray(lengths, dtype=np.int64)
+        frz_np = (np.zeros(B, dtype=bool) if freeze is None
+                  else np.asarray(freeze, dtype=bool).copy())
+        if self._retired:
+            frz_np[list(self._retired)] = True
+        L = int(lengths.max())
+        W = J * L
+        if tuple(draws.u_accept.shape) != (B, W):
+            raise ValueError(f"tree accept uniforms {tuple(draws.u_accept.shape)}"
+                             f" != (B={B}, W={W})")
+
+        # the TARGET maps the whole W+1 tree window up front; the draft side
+        # only ever holds one run (L+1) — repair fits under both.  Positions
+        # come from the host-side committed lists (target_pos == draft_pos
+        # == len(committed) - 1), zero device reads.
+        cap = self.pages_per_stream * self.page_size
+        grown: list[tuple[int, int, int]] = []
+        with _span("engine.page_alloc", {"B": B, "W": W}):
+            try:
+                for b in range(B):
+                    if frz_np[b]:
+                        continue
+                    pos_b = len(state.committed[b]) - 1
+                    grown.append((b, self.t_pages.length(b),
+                                  self.d_pages.length(b)))
+                    self.t_pages.extend(b, min(pos_b + W + 1, cap))
+                    self.d_pages.extend(b, min(pos_b + L + 1, cap))
+            except PagePoolExhausted:
+                for b, t_len, d_len in grown:
+                    self.t_pages.truncate(b, t_len)
+                    self.d_pages.truncate(b, d_len)
+                raise
+        t_pt = self.t_pages.device_table(range(B))
+        d_pt = self.d_pages.device_table(range(B))
+        t_cache = dict(self.t_cache, pages=t_pt)
+        d_cache = dict(self.d_cache, pages=d_pt)
+
+        # --- step 2: J drafting runs per stream (SLM) ---
+        scatter = self.tree_commit == "scatter" and J > 1
+        with _span("engine.draft_forest", {"B": B, "L": L, "J": J}) as sp:
+            forest = generate_draft_forest(self.draft, self.d_params, d_cache,
+                                           state.pending, state.draft_pos,
+                                           L, J, draws.draft_gumbel,
+                                           vhat=vhat, keep_windows=scatter)
+            sp.attach(forest.tokens)
+        d_cache = forest.cache
+
+        # --- pack into the prefix-deduplicated tree (host-side) ---
+        with _span("engine.tree_build", {"B": B, "L": L, "J": J}):
+            # ONE transfer brings everything the trie build needs
+            tok_np, p_np, qi_np, qv_np, pend_np = self._host_fetch(
+                forest.tokens, forest.probs, forest.q_idx, forest.q_val,
+                state.pending)
+            ttree = build_token_tree(tok_np, p_np, qi_np, qv_np, lengths,
+                                     scratch=self._tree_scratch)
+            window = self._upload(
+                ttree.window_tokens(pend_np).astype(np.int32))   # (B, W+1)
+            wmask = self._upload(ttree.window_mask())
+            wdepth = self._upload(ttree.window_depth().astype(np.int32))
+            paths = self._upload(ttree.paths)
+            tree_args = [self._upload(a) for a in (
+                ttree.tokens, ttree.parents, ttree.depth, ttree.probs)]
+            tree_q = [self._upload(a) for a in (ttree.q_idx, ttree.q_val)]
+            draft_len = self._upload(lengths.astype(np.int32))
+
+        # --- step 4: ONE ancestor-masked target pass over the whole tree ---
+        with _span("engine.target_pass", {"B": B, "W": W + 1, "J": J}) as sp:
+            logits, t_cache = self.target.forward_window(
+                self.t_params, window, t_cache, state.target_pos,
+                window_mask=wmask, window_depth=wdepth)
+            sp.attach(logits)
+
+        with _span("engine.verify_tokens", {"B": B, "L": L, "J": J}) as sp:
+            res = verify_tree(*tree_args, paths, logits, *tree_q, draft_len,
+                              draws.u_accept, draws.u_resid,
+                              draws.bonus_gumbel)
+            sp.attach(res.accept_counts)
+
+        # --- step 5a: land the accepted path's K/V (a J=1 chain already IS
+        # the sequential window: nothing to move)
+        frz = self._upload(frz_np)
+        if scatter:
+            # the ancestor-masked target pass ALREADY computed the accepted
+            # path's K/V (each tree node conditions on exactly its
+            # root-to-node path): move the winning branch's rows from their
+            # tree-window positions into the committed positions.  Sources
+            # and destinations overlap (src >= dst), so the rows are
+            # gathered into a fresh tensor before the scatter.
+            with _span("engine.kv_commit", {"B": B, "L": L, "J": J}) as sp:
+                rows = torch.arange(B, device=self.device)
+                win_rows = res.winner.long()
+                path_w = paths.long().gather(
+                    1, win_rows[:, None, None].expand(B, 1, L))[:, 0]  # (B, L)
+                col = torch.arange(L, device=self.device)[None, :]
+                keep = ((col < res.accept_counts[:, None]) & (path_w >= 0)
+                        & ~frz[:, None])
+                src_t = state.target_pos[:, None].long() + 1 + path_w.clamp(min=0)
+                dst_t = state.target_pos[:, None].long() + 1 + col
+                dst_d = state.draft_pos[:, None].long() + 1 + col
+                for leaf in forest.windows:
+                    vals = gather_kv_window(t_cache[leaf], src_t, page_table=t_pt)
+                    scatter_kv_window(t_cache[leaf], vals, dst_t, keep,
+                                      page_table=t_pt)
+                    win = forest.windows[leaf][:, rows, win_rows]  # (Ln,B,L,KV,D)
+                    scatter_kv_window(d_cache[leaf], win, dst_d, keep,
+                                      page_table=d_pt)
+                sp.attach(t_cache["k"])
+        elif J > 1:
+            # repair forward (the reference path): one plain causal window
+            # over [pending, accepted path] rewrites the surviving positions
+            n_max = int(self._host_fetch(res.accept_counts).max())
+            repair = torch.cat(
+                [state.pending[:, None].to(res.output_tokens.dtype),
+                 res.output_tokens[:, :n_max]], dim=1)           # (B, n_max+1)
+            with _span("engine.cache_repair", {"B": B, "n": n_max + 1}) as sp:
+                _, t_cache = self.target.forward_window(
+                    self.t_params, repair, t_cache, state.target_pos)
+                _, d_cache = self.draft.forward_window(
+                    self.d_params, repair, d_cache, state.draft_pos)
+                sp.attach(t_cache["k"])
+        self.t_cache = strip_view(t_cache)
+        self.d_cache = strip_view(d_cache)
+
+        # --- step 5b: commit + rollback (as the sequential round) ---
+        zero = torch.zeros((), dtype=res.accept_counts.dtype, device=self.device)
+        adv = torch.where(frz, zero, 1 + res.accept_counts)
+        new_target_pos = state.target_pos + adv.to(state.target_pos.dtype)
+        new_draft_pos = state.draft_pos + adv.to(state.draft_pos.dtype)
+        sampled = res.output_tokens.gather(
+            1, res.accept_counts.long()[:, None])[:, 0]
+        new_pending = torch.where(frz, state.pending,
+                                  sampled.to(state.pending.dtype))
+
+        # one transfer lands the commit on the host (tokens + counts;
+        # positions for the page truncation ride along)
+        out_np, n_np, ntp, ndp = self._host_fetch(
+            res.output_tokens, res.accept_counts, new_target_pos,
+            new_draft_pos)
+        self.last_accepted = np.where(frz_np, 0, n_np + 1).astype(np.int64)
+        for b in range(B):
+            if not frz_np[b]:
+                state.committed[b].extend(out_np[b, :n_np[b] + 1].tolist())
+
+        # every page past the accepted prefix — all dead branches of the
+        # tree — returns to the pool here
+        with _span("engine.page_free", {"B": B}):
+            for b in range(B):
+                if not frz_np[b]:
+                    self.t_pages.truncate(b, int(ntp[b]))
+                    self.d_pages.truncate(b, int(ndp[b]))
+
+        new_state = StreamState(pending=new_pending, target_pos=new_target_pos,
+                                draft_pos=new_draft_pos,
+                                committed=state.committed)
+        return new_state, res, forest

@@ -22,7 +22,7 @@ SRC, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 COPIES = ([f"configs/{p.name}" for p in sorted((SRC / "configs").glob("*.py"))]
           + [f"core/{n}.py" for n in ("goodput", "channel", "bandwidth",
                                       "lambertw", "draft_control", "schemes",
-                                      "controller", "beyond")]
+                                      "controller", "beyond", "token_tree")]
           + ["serving/cell.py", "serving/scheduler.py", "obs/trace.py"])
 
 _IMPORT = re.compile(r"^\s*(from|import) repro(_torch)?\.")
@@ -91,6 +91,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     "repro_torch.models.transformer:DecoderLM",
     "repro_torch.bridge:params_from_jax",
     "repro_torch.core.draws:RoundDraws.sample",
+    "repro_torch.core.draws:TreeDraws.sample",
 ])
 def test_entry_points_default_to_the_card(entry):
     """Every public constructor that places tensors runs on the card unless

@@ -5,7 +5,8 @@ tensors, exactly the draws the reference takes from ``PRNGKey(seed)`` —
 ``spin_round`` splits the key into (draft, verify); drafting splits the
 draft key into L step keys, one Gumbel (B, vhat) each; verification splits
 the verify key into 3 for the accept uniforms, the residual uniforms and the
-bonus Gumbel (B, V).  Both sides carry the same weights
+bonus Gumbel (B, V).  ``jax_draws(..., J=J)`` is the tree round's form
+(``tests/test_torch_tree.py``).  Both sides carry the same weights
 (``bridge.params_from_jax``).  Sampled tokens, accept masks, counts,
 committed lists, page tables and ``pool_stats`` must be identical; float
 outputs agree within 2e-5 (``_tol(float32)`` of ``tests/test_kernels.py``).
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch import configs as tcfgs
 from repro_torch.bridge import params_from_jax
-from repro_torch.core.draws import RoundDraws
+from repro_torch.core.draws import RoundDraws, TreeDraws
 
 B, MAX_LEN, VHAT, PS = 3, 96, 64, 16
 NUM_PAGES = B * 2 * (MAX_LEN // PS)
@@ -70,18 +71,28 @@ def _cell_config(cell_cls):
                     max_batch=B, seed=0)
 
 
-def jax_draws(seed, B, L, vhat, V) -> RoundDraws:
-    """The reference's draws from ``PRNGKey(seed)``, with its key splits."""
+def jax_draws(seed, B, L, vhat, V, J=None):
+    """The reference's draws from ``PRNGKey(seed)``, with its key splits.
+
+    ``J`` given: the tree form (``TreeDraws``) of a multi-draft round —
+    run 0 drafts from the draft key, run j from ``fold_in(draft key, j)``,
+    each split into L step keys; one accept uniform per tree node
+    (W = J * L)."""
     k_draft, k_verify = jax.random.split(jax.random.PRNGKey(seed))
-    steps = jax.random.split(k_draft, L)
-    draft = np.stack([np.asarray(jax.random.gumbel(k, (B, vhat)))
-                      for k in steps])
+    runs = [k_draft if j == 0 else jax.random.fold_in(k_draft, j)
+            for j in range(J or 1)]
+    draft = np.stack([np.stack([np.asarray(jax.random.gumbel(k, (B, vhat)))
+                                for k in jax.random.split(kj, L)])
+                      for kj in runs])                      # (J, L, B, vhat)
+    W = (J or 1) * L
     k_accept, k_resid, k_bonus = jax.random.split(k_verify, 3)
-    return RoundDraws(
-        draft_gumbel=torch.from_numpy(draft),
-        u_accept=torch.from_numpy(np.array(jax.random.uniform(k_accept, (B, L)))),
+    out = dict(
+        u_accept=torch.from_numpy(np.array(jax.random.uniform(k_accept, (B, W)))),
         u_resid=torch.from_numpy(np.array(jax.random.uniform(k_resid, (B,)))),
         bonus_gumbel=torch.from_numpy(np.array(jax.random.gumbel(k_bonus, (B, V)))))
+    if J is None:
+        return RoundDraws(draft_gumbel=torch.from_numpy(draft[0]), **out)
+    return TreeDraws(draft_gumbel=torch.from_numpy(draft), **out)
 
 
 def _committed(state):
@@ -433,9 +444,6 @@ def test_unported_engine_paths_name_their_roadmap_item(ref):
     st = eng.start(torch.from_numpy(_prompts()[0]))
     with pytest.raises(NotImplementedError, match="A9"):
         eng.warmup(st, [(B, 4)])
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.spin_round(st, np.full(B, 2), jax_draws(0, B, 2, VHAT, 257),
-                       draft_width=2)
     with pytest.raises(NotImplementedError, match="A8"):
         ContinuousBackend(eng, st)
 

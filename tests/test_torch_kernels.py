@@ -2,7 +2,8 @@
 
 Same numpy inputs (fixed seeds) through ``repro.kernels.ref`` (the JAX
 package's oracles, as ``tests/test_kernels.py`` holds its Pallas kernels to
-them) and through ``repro_torch.kernels`` with CPU tensors.  Tolerances are
+them), or through the Pallas kernels in interpret mode, and through
+``repro_torch.kernels`` with CPU tensors.  Tolerances are
 ``_tol`` of ``tests/test_kernels.py``: 2e-5 in float32, 2e-2 in bfloat16;
 integer outputs (accept masks, counts, sampled tokens) must be equal.  The
 CUDA kernels themselves are held against these plain versions on the card
@@ -15,10 +16,14 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.kernels import cases
 from repro_torch.kernels import fused_verify_sample as tfvs
+from repro_torch.kernels import gather_softmax_prob as tgsp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import paged_tree_attention as tpta
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import residual_sample as trs
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -188,6 +193,142 @@ def test_residual_sample_saturates_at_last_token_when_nothing_crosses():
         jnp.asarray(u.numpy())))[0]) == 2
 
 
+# ---------------------------------------------------------------------------
+# the tree round's kernels: paged tree attention, gather softmax prob,
+# residual sample
+# ---------------------------------------------------------------------------
+
+def _tree_inputs(seed, B, J, L, H, KV, D, ps, P, n_slots, retired=True):
+    """q, pools, a scattered page table mapping each row's committed
+    ``lengths`` plus the T = J*L+1 window (the last row retired: all -1,
+    with a length), and the ancestor mask of J random drafts per row."""
+    rng = np.random.default_rng(seed)
+    T = J * L + 1
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    kp = rng.standard_normal((P, ps, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((P, ps, KV, D)).astype(np.float32)
+    lengths = rng.integers(1, n_slots * ps - T + 1, B).astype(np.int32)
+    pt = _page_table(rng, B, n_slots, P, ps, lengths + 1, T, holes=retired)
+    mask = cases.tree_mask(B, J, L, seed=seed).numpy()
+    return q, kp, vp, pt, lengths, mask
+
+
+TREE_SHAPES = [
+    # B, J, L, H, KV, D, ps, P, n_slots
+    (3, 2, 3, 4, 2, 16, 16, 24, 6),      # GQA, J=2
+    (3, 3, 2, 4, 1, 32, 8, 40, 8),       # MQA, J=3, small pages
+    (2, 2, 4, 4, 4, 64, 16, 12, 5),      # MHA, longer drafts
+]
+
+
+@pytest.mark.parametrize("shape", TREE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_tree_attention_plain_matches_jax_ref(shape, dtype):
+    """Rows with a live page table match the JAX oracle within ``_tol``;
+    the retired row (all -1, with a length) is 0 in the port and attends
+    page 0 in the oracle (ROADMAP §C), so it is left out and checked to be
+    0."""
+    B, J, L, H, KV, D, ps, P, n_slots = shape
+    q, kp, vp, pt, lengths, mask = _tree_inputs(sum(shape), *shape)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    want = np.asarray(jref.paged_tree_attention_ref(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(pt), jnp.asarray(lengths), jnp.asarray(mask)), np.float32)
+    got = tops.paged_tree_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(kp).to(tdt),
+        torch.from_numpy(vp).to(tdt), torch.from_numpy(pt),
+        torch.from_numpy(lengths), torch.from_numpy(mask)).float().numpy()
+    live = (pt >= 0).any(-1)
+    assert live.any() and not live.all()
+    np.testing.assert_allclose(got[live], want[live],
+                               **(F32_TOL if dtype == "float32" else BF16_TOL))
+    assert np.all(got[~live] == 0.0)
+
+
+def test_paged_tree_attention_plain_matches_pallas_interpret():
+    """One small case through the Pallas kernel in interpret mode, the
+    retired row included: the Pallas kernel skips unmapped pages, so that
+    row is 0 there too."""
+    from repro.kernels.tree_attention import paged_tree_attention_pallas
+
+    q, kp, vp, pt, lengths, mask = _tree_inputs(5, 3, 2, 2, 4, 2, 16, 8, 20, 4)
+    want = np.asarray(paged_tree_attention_pallas(
+        *(jnp.asarray(a) for a in (q, kp, vp, pt, lengths, mask)),
+        interpret=True))
+    got = tops.paged_tree_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, pt, lengths, mask))).numpy()
+    assert not (pt[-1] >= 0).any() and np.all(got[-1] == 0.0)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_paged_tree_attention_chain_mask_is_paged_attention():
+    """A lower-triangular mask is the sequential window: the op equals
+    ``paged_attention`` at lengths + 1, bit for bit."""
+    B, T, H, KV, D, ps, P, n_slots = 3, 5, 4, 2, 16, 8, 30, 6
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((B, T, H, D)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((P, ps, KV, D)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((P, ps, KV, D)).astype(np.float32))
+    lengths = rng.integers(1, n_slots * ps - T, B).astype(np.int32)
+    pt = torch.from_numpy(_page_table(rng, B, n_slots, P, ps, lengths + 1, T))
+    ln = torch.from_numpy(lengths)
+    chain = torch.tril(torch.ones((T, T), dtype=torch.bool)).expand(B, T, T)
+    got = tops.paged_tree_attention(q, kp, vp, pt, ln, chain.contiguous())
+    want = tops.paged_attention(q, kp, vp, pt, ln + 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,V", [(6, 300), (9, 2500), (4, 4096)])
+def test_gather_softmax_prob_plain_matches_pallas_interpret(N, V):
+    from repro.kernels.gather_softmax_prob import gather_softmax_prob_pallas
+
+    logits, ids = cases.softmax_case(N, V, "cpu", seed=N)
+    want = np.asarray(gather_softmax_prob_pallas(
+        jnp.asarray(logits.numpy()), jnp.asarray(ids.numpy()), interpret=True))
+    got = tops.gather_softmax_prob(logits, ids).numpy()
+    rtol, atol = cases.GATHER_TOL       # relative: most picks are ~1/V
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def test_gather_tolerance_catches_a_wrong_normalizer():
+    """The band the kernel is held to on the card fails a normalizer short
+    of one key of average weight (1/V relative) and zeros on the rows whose
+    pick is small, and the case picks large, median and small
+    probabilities."""
+    N, V = 96, 32000
+    logits, ids = cases.softmax_case(N, V, "cpu")
+    want = tops.gather_softmax_prob(logits, ids)
+    rtol, atol = cases.GATHER_TOL
+    assert float(want.max()) > 1e-2 and float(want.min()) < 1e-9
+    assert int((want > 1e-4).sum()) > N // 8
+    assert torch.allclose(want * (1 + 1e-6), want, rtol=rtol, atol=atol)
+    for wrong in (want * (1 + 1 / V), want / (1 + 1 / V),
+                  torch.where(want < 2e-5, 0.0, want)):
+        assert not torch.allclose(wrong, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("N,V", [(6, 300), (8, 2500)])
+def test_residual_sample_plain_matches_pallas_interpret(N, V):
+    """Equal tokens on every row whose CDF crosses u * Z (the Pallas kernel
+    returns argmax(p) where nothing crosses, the port V - 1; on the Z = 0
+    rows both return argmax(p), the port taking the first of tied maxima
+    and the Pallas kernel the last of them within a vocab tile)."""
+    from repro.kernels.residual_sample import residual_sample_pallas
+
+    p, q, u = cases.residual_case(N, V, "cpu", seed=V)
+    want = np.asarray(residual_sample_pallas(
+        *(jnp.asarray(a.numpy()) for a in (p, q, u)), interpret=True))
+    got = tops.residual_sample(p, q, u).numpy()
+    z = (p - q).clamp(min=0).sum(-1)
+    crosses = ((z > 0) & (u < 1)).numpy()
+    assert crosses.sum() == N - 3
+    np.testing.assert_array_equal(got[crosses], want[crosses])
+    assert got[0] == p[0].argmax() and got[2] == V - 1      # Z = 0, no cross
+    tied = (p[1] == p[1].max()).nonzero().flatten()
+    assert len(tied) == 2 and got[1] == tied[0] and want[1] in tied
+
+
 def test_ops_count_plain_calls_on_cpu():
     tops.reset_counts()
     rng = np.random.default_rng(7)
@@ -199,9 +340,20 @@ def test_ops_count_plain_calls_on_cpu():
     tops.paged_attention(q, kp, kp, pt, torch.tensor([3, 5], dtype=torch.int32))
     arrs = _fused_inputs(3, 2, 3, 100, 8)
     tops.fused_verify_sample(*(torch.from_numpy(a) for a in arrs))
+    mask = cases.tree_mask(B, 1, 1)
+    tops.paged_tree_attention(q, kp, kp, pt, torch.tensor([3, 5], dtype=torch.int32),
+                              mask)
+    logits = torch.from_numpy(rng.standard_normal((3, 40)).astype(np.float32))
+    tops.gather_softmax_prob(logits, torch.tensor([1, 2, 3], dtype=torch.int32))
+    p = torch.softmax(logits, -1)
+    tops.residual_sample(p, p.roll(1, -1), torch.rand(3))
+    tops.residual_sample(p, p.roll(2, -1), torch.rand(3))
     assert tops.counts() == {
         "paged_attention": {"kernel": 0, "plain": 1},
-        "fused_verify_sample": {"kernel": 0, "plain": 1}}
+        "fused_verify_sample": {"kernel": 0, "plain": 1},
+        "paged_tree_attention": {"kernel": 0, "plain": 1},
+        "gather_softmax_prob": {"kernel": 0, "plain": 1},
+        "residual_sample": {"kernel": 0, "plain": 2}}
     tops.reset_counts()
     assert all(c == {"kernel": 0, "plain": 0} for c in tops.counts().values())
 
@@ -219,7 +371,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfvs.fused_verify_sample_cuda(*(torch.from_numpy(a) for a in arrs),
                                       torch.tensor([2], dtype=torch.int32))
-    assert tpa.launches == 0 and tfvs.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        tpta.paged_tree_attention_cuda(q, pool, pool, pt, ln,
+                                       torch.ones((1, 1, 1), dtype=torch.bool))
+    logits = torch.zeros((2, 50))
+    with pytest.raises(ValueError, match="CUDA"):
+        tgsp.gather_softmax_prob_cuda(logits, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        trs.residual_sample_cuda(logits, logits, torch.zeros(2))
+    assert tpa.launches == tfvs.launches == tpta.launches == 0
+    assert tgsp.launches == trs.launches == 0
 
 
 def test_ops_reject_other_devices():

@@ -3,8 +3,8 @@
 Parameters come from the reference's ``DecoderLM.init`` and are carried
 across with ``repro_torch.bridge.params_from_jax``; inputs are numpy with
 fixed seeds.  Logits must agree within ``_tol(float32)`` of
-``tests/test_kernels.py`` (2e-5) for prefill and for T=1 and T=L+1
-windows.  The JAX side runs its CPU path (page-table gather + masked
+``tests/test_kernels.py`` (2e-5) for prefill, for T=1 and T=L+1
+windows and for token-tree windows.  The JAX side runs its CPU path (page-table gather + masked
 ``gqa_attention``); the port runs ``ops.paged_attention``'s plain version.
 The two differ only on query rows that see no key (all-(-1) table rows),
 which the comparison leaves out and says so.
@@ -208,15 +208,115 @@ def test_paged_update_drop_contract_matches_jax():
                                  torch.from_numpy(pt))
 
 
+# ---------------------------------------------------------------------------
+# token-tree windows
+# ---------------------------------------------------------------------------
+
+def _tree(rng, B, J, L, lengths=None):
+    """The packed tree of J random drafts per row over a 3-token alphabet
+    (shared prefixes and divergence both occur)."""
+    from repro_torch.core.token_tree import build_token_tree
+
+    toks = rng.integers(0, 3, (B, J, L))
+    zeros = np.zeros((B, J, L, 1))
+    lengths = np.full(B, L) if lengths is None else np.asarray(lengths)
+    return build_token_tree(toks, zeros[..., 0], zeros.astype(np.int32),
+                            zeros, lengths)
+
+
+def test_tree_window_helpers_match_jax():
+    """``tree_window_mask``, ``gather_kv_window`` and ``scatter_kv_window``
+    equal the JAX functions on numpy-seeded pools: positions past the table
+    or through -1 entries clamp on gather and drop on scatter (the JAX drop
+    bin is each port layer's drop slot), invalid positions drop."""
+    rng = np.random.default_rng(6)
+    Ln, P, ps, KV, D, B, T = 2, 6, 4, 2, 8, 3, 5
+    pt = np.array([[2, -1, 4], [0, 1, 3], [-1, -1, -1]], np.int32)
+    pos = np.array([[1, 5, 9, 2, 0], [3, 4, 11, 12, 7], [0, 1, 2, 3, 4]],
+                   np.int32)                    # 12 runs past the table
+    valid = rng.random((B, T)) < 0.8
+    leaf0 = rng.standard_normal((Ln, P, ps, KV, D)).astype(np.float32)
+    vals = rng.standard_normal((Ln, B, T, KV, D)).astype(np.float32)
+    leaf = tl.new_page_pool(Ln, P, ps, KV, D, dtype=torch.float32,
+                            device="cpu")
+    leaf.copy_(torch.from_numpy(leaf0))
+    got = tl.gather_kv_window(leaf, torch.from_numpy(pos), torch.from_numpy(pt))
+    want = jl.gather_kv_window(jnp.asarray(leaf0), jnp.asarray(pos),
+                               page_table=jnp.asarray(pt))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    tl.scatter_kv_window(leaf, torch.from_numpy(vals), torch.from_numpy(pos),
+                         torch.from_numpy(valid), torch.from_numpy(pt))
+    want = jl.scatter_kv_window(jnp.asarray(leaf0), jnp.asarray(vals),
+                                jnp.asarray(pos), jnp.asarray(valid),
+                                page_table=jnp.asarray(pt))
+    np.testing.assert_array_equal(leaf.numpy(), np.asarray(want))
+    assert not np.array_equal(leaf.numpy(), leaf0)
+    tree = _tree(rng, B, 2, 3, lengths=[3, 2, 3])
+    wm, offs = tree.window_mask(), np.array([4, 0, 9], np.int32)
+    np.testing.assert_array_equal(
+        tl.tree_window_mask(torch.from_numpy(offs), torch.from_numpy(wm),
+                            20).numpy(),
+        np.asarray(jl.tree_window_mask(jnp.asarray(offs), jnp.asarray(wm), 20)))
+
+
+@pytest.mark.parametrize("J", [2, 3, "chain"])
+def test_tree_forward_window_matches_jax(J):
+    """A token-tree window of J drafts (from ``build_token_tree``) through
+    the paged cache: logits within ``_tol(float32)`` of the JAX
+    ``forward_window`` on live rows, and the pools agree everywhere.  A
+    chain mask with depths 0..T-1 equals the port's sequential window."""
+    cfg, jm, jparams, tm, tparams = _pair("target")
+    rng = np.random.default_rng(7)
+    B, S, L = 3, 13, 3
+    P = B * N_SLOTS
+    if J == "chain":
+        T = L + 1
+        wm = np.broadcast_to(np.tril(np.ones((T, T), bool)), (B, T, T)).copy()
+        depth = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    else:
+        tree = _tree(rng, B, J, L, lengths=[L, L - 1, L])
+        wm, depth = tree.window_mask(), tree.window_depth().astype(np.int32)
+        T = J * L + 1
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    pt = _table(rng, B, P, np.full(B, S + T))
+    jcache = dict(jm.init_paged_cache(P, PS, jnp.float32), pages=jnp.asarray(pt))
+    tcache = dict(tm.init_paged_cache(P, PS, torch.float32),
+                  pages=torch.from_numpy(pt))
+    _, jcache, _ = jm.prefill(jparams, jnp.asarray(tokens), jcache)
+    _, tcache, _ = tm.prefill(tparams, torch.from_numpy(tokens), tcache)
+    win = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    pos = np.full(B, S, np.int32)
+    jl_, jcache = jm.forward_window(jparams, jnp.asarray(win), jcache,
+                                    jnp.asarray(pos), window_mask=jnp.asarray(wm),
+                                    window_depth=jnp.asarray(depth))
+    if J == "chain":
+        seq = dict(tm.init_paged_cache(P, PS, torch.float32),
+                   pages=torch.from_numpy(pt))
+        _, seq, _ = tm.prefill(tparams, torch.from_numpy(tokens), seq)
+        seq_logits, seq = tm.forward_window(tparams, torch.from_numpy(win), seq,
+                                            torch.from_numpy(pos))
+    tl_, tcache = tm.forward_window(tparams, torch.from_numpy(win), tcache,
+                                    torch.from_numpy(pos),
+                                    window_mask=torch.from_numpy(wm),
+                                    window_depth=torch.from_numpy(depth))
+    live = slice(0, B - 1)
+    np.testing.assert_allclose(tl_.numpy()[live], np.asarray(jl_)[live], **TOL)
+    for leaf in ("k", "v"):
+        np.testing.assert_allclose(tcache[leaf].numpy(),
+                                   np.asarray(jcache[leaf]), **TOL)
+    if J == "chain":
+        np.testing.assert_allclose(tl_.numpy(), seq_logits.numpy(), **TOL)
+    with pytest.raises(ValueError, match="window_mask"):
+        tm.forward_window(tparams, torch.from_numpy(win), tcache,
+                          torch.from_numpy(pos),
+                          window_depth=torch.from_numpy(depth))
+
+
 def test_unported_paths_name_their_roadmap_item():
     cfg = _cfgs()["target"]
     tm = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="A2"):
         tm.init_cache(1, 32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tm.forward_window(None, torch.zeros((1, 2), dtype=torch.int32), {},
-                          torch.zeros(1, dtype=torch.int32),
-                          window_mask=torch.ones((1, 2, 2), dtype=torch.bool))
     for arch, item in (("mamba2-130m", "A13"), ("zamba2-2.7b", "A13"),
                        ("whisper-large-v3", "A14"), ("paligemma-3b", "A14"),
                        ("moonshot-v1-16b-a3b", "A12")):
