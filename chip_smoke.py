@@ -8,7 +8,7 @@ result line, without them.  Imports nothing of jax and nothing of the JAX
 package.  Phases (none catches a failure):
 
   1. the card: nvidia-smi's name and power limit, torch's device name
-  2. build all five kernels from ``src/repro_torch/csrc`` (one nvcc each, in
+  2. build all seven kernels from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel); print build seconds and ptxas register/smem/spill lines
   3. each kernel against its plain version on the card at the shapes the
      serving paths give it: max error, exact-match counts, kernel / plain /
@@ -19,10 +19,17 @@ package.  Phases (none catches a failure):
      plain version printed beside it; a chain-masked tree window must also
      equal paged attention at lengths + 1.  The samplers must agree except
      where ``u * Z`` lies within rounding of a CDF step (float64 check).
+     Contiguous tree attention (B6) is held like paged tree attention, and
+     its chain mask must equal paged tree attention over the same keys laid
+     out in pages, bit for bit; the SSD scan (B10, bfloat16 and float32,
+     with and without an initial state) within ``cases.SSD_TOL``.
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
      weights and draws, three sequential rounds then three tree rounds
-     (J=1 through the tree machinery, J=2, J=3): identical committed tokens
+     (J=1 through the tree machinery, J=2, J=3) on the paged layout, the
+     same six rounds on the contiguous layout, and three J=1 rounds each
+     with mamba2 and zamba2 smoke targets (contiguous): identical committed
+     tokens
   5. the J=1 path at full width: Llama-2-7B verifying TinyLlama-1.1B drafts
      in bfloat16, paged (page_size 16, max_len 1024), under a
      ``MultiSpinCell`` (scheme hete) with 8 requests of 128-token prompts
@@ -38,8 +45,23 @@ package.  Phases (none catches a failure):
      ``draft_width >= 2``, the kernels paged_attention, paged_tree_attention,
      gather_softmax_prob and residual_sample, and exactly two host syncs;
      then 3 profiled rounds
-  7. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
+  7. the contiguous tree path at full width: the same pair, requests and
+     ``multidraft`` cell on a contiguous engine (max_len 1024, the JAX
+     engine's default layout); per round ``draft_width >= 2``, the kernels
+     tree_attention, gather_softmax_prob and residual_sample, no plain
+     call, exactly two host syncs; then 3 profiled rounds
+  8. the hybrid path at full width: Zamba2-2.7B verifying TinyLlama-1.1B
+     drafts in bfloat16, contiguous, scheme hete, 8 persistent requests of
+     128-token prompts (an SSM target refuses frozen rows); ssd_scan
+     launches once per Mamba-2 layer (54) in ``start()``'s prefill; per
+     round fused_verify_sample, no plain call, exactly one host sync; then
+     3 profiled rounds
+  9. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
      line ``{"ok": true, "device": {...}}``
+
+Each path's counters are set to 0 just before its engine's ``start()`` and
+read after its last checked round; ``launches`` in the kernels line sums
+them over the paths, prefills included.
 """
 
 from __future__ import annotations
@@ -81,6 +103,22 @@ SOFTMAX_CASES = [("tree nodes J=2 L=6", (96, 32000)),
 SOFTMAX_HEADLINE = "tree nodes J=2 L=6"
 RESIDUAL_CASES = [("llama vocab", (8, 32000)), ("qwen3.5 vocab", (8, 151936))]
 RESIDUAL_HEADLINE = "llama vocab"
+CONTIGUOUS_ROUNDS = 16
+HYBRID_ROUNDS = 16
+CONTIGUOUS_TREE_CASES = [
+    # name, (B, J, L, H, KV, D, S, ctx), chain: T = J*L + 1
+    ("llama2-7b tree window J=2 L=6", (8, 2, 6, 32, 32, 128, 1024, 512), False),
+    ("llama2-7b ceiling J=6 L=8", (8, 6, 8, 32, 32, 128, 1024, 512), False),
+    ("llama2-7b chain T=13", (8, 2, 6, 32, 32, 128, 1024, 512), True),
+]
+CONTIGUOUS_TREE_HEADLINE = ("llama2-7b tree window J=2 L=6", "bfloat16")
+SSD_CASES = [
+    # name, (b, s, h, p, g, n, chunk), initial state
+    ("zamba2-2.7b prefill", (8, 128, 80, 64, 1, 64, 64), False),
+    ("zamba2-2.7b prefill, initial state", (8, 128, 80, 64, 1, 64, 64), True),
+    ("mamba2-130m heads", (8, 128, 24, 64, 1, 128, 64), False),
+]
+SSD_HEADLINE = ("zamba2-2.7b prefill", "bfloat16")
 
 
 def log(*args):
@@ -309,6 +347,120 @@ def check_tree_kernels(torch, cases, pa, pta, gsp, rs):
     return tree, softmax, residual
 
 
+def check_contiguous_kernels(torch, cases, pta, ta, ssd):
+    """Phase 3, the contiguous layout's kernels against their plain
+    versions; returns (tree attention, ssd scan) records."""
+    tree = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, shape, chain in CONTIGUOUS_TREE_CASES:
+        B, J, L = shape[:3]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cases.contiguous_tree_case(*shape, dtype=dtype,
+                                              device="cuda", chain=chain)
+            got = ta.tree_attention_cuda(*args).float()
+            want = cases.contiguous_tree_held(*args)
+            plain = ta.tree_attention_plain(*args).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            err_plain = float((got - plain).abs().max())
+            rtol, atol = cases.PAGED_TOL[dtype]
+            close = torch.allclose(got, want, rtol=rtol, atol=atol)
+            err_b3 = None
+            if chain:       # the same keys in 16-key pages through B3
+                q, kc, vc, ln, mask = args
+                kp, vp, table = cases.as_pages(kc, vc)
+                b3 = pta.paged_tree_attention_cuda(q, kp, vp, table, ln,
+                                                   mask).float()
+                err_b3 = float((got - b3).abs().max())
+            n_bytes, n_ops = cases.contiguous_tree_work(*args)
+            bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
+            sq, sk, sv, smask = cases.contiguous_tree_sdpa_inputs(*args)
+            rec = {
+                "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "shape": dict(zip("B J L H KV D S ctx".split(), shape),
+                              T=J * L + 1, chain=chain),
+                "max_abs_err": err, "rtol": rtol, "atol": atol,
+                "max_abs_err_vs_plain_same_dtype": err_plain,
+                "max_abs_err_vs_paged_tree_attention": err_b3,
+                "ms": cases.time_ms(lambda: ta.tree_attention_cuda(*args)),
+                "plain_ms": cases.time_ms(lambda: ta.tree_attention_plain(*args),
+                                          iters=10),
+                "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
+                                                         attn_mask=smask)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": n_bytes, "ops": n_ops,
+            }
+            log(f"tree_attention {name:30s} {rec['dtype']:8s} "
+                f"max|err| {err:.3e} vs f32 plain (rtol {rtol}, atol {atol}), "
+                f"{err_plain:.3e} vs {rec['dtype']} plain"
+                + (f", {err_b3:.3e} vs paged_tree_attention" if chain else "")
+                + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+                f"sdpa {rec['library_ms']:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            if not close:
+                raise AssertionError(f"tree_attention {name} {dtype}: kernel "
+                                     f"disagrees with plain, max|err| {err}")
+            if chain and err_b3 != 0.0:
+                raise AssertionError(f"tree_attention {name} {dtype}: a chain "
+                                     f"mask differs from paged_tree_attention "
+                                     f"over the same keys by {err_b3}")
+            tree.append(rec)
+    try:                        # the kernel's limit is refused, not mis-run
+        over = cases.contiguous_tree_case(1, 8, 8, 4, 2, 16, 128, 40,
+                                          torch.float32, "cuda")
+        ta.tree_attention_cuda(*over)
+        raise AssertionError("tree_attention accepted a 65-token window")
+    except ValueError as e:
+        log(f"tree_attention T=65 refused: {e}")
+
+    scan = []
+    for name, (b, s, h, p, g, n, chunk), init in SSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, B, C, st = cases.ssd_case(b, s, h, p, g, n, dtype, "cuda",
+                                                init=init)
+            y, fs = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                                      initial_state=st)
+            y_want, fs_want = cases.ssd_scan_held(x, dt, A, B, C, chunk, st)
+            y_plain, _ = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                            initial_state=st)
+            torch.cuda.synchronize()
+            err = float((y.float() - y_want).abs().max())
+            err_state = float((fs - fs_want).abs().max())
+            err_plain = float((y.float() - y_plain.float()).abs().max())
+            rtol, atol = cases.SSD_TOL[dtype]
+            srtol, satol = cases.SSD_STATE_TOL
+            close = (torch.allclose(y.float(), y_want, rtol=rtol, atol=atol)
+                     and torch.allclose(fs, fs_want, rtol=srtol, atol=satol))
+            n_bytes, n_ops = cases.ssd_work(x, dt, A, B, C, chunk, st)
+            bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
+            rec = {
+                "case": name, "dtype": str(dtype).replace("torch.", ""),
+                "shape": dict(zip("b s h p g n chunk".split(),
+                                  (b, s, h, p, g, n, chunk)),
+                              initial_state=init),
+                "max_abs_err": err, "rtol": rtol, "atol": atol,
+                "max_abs_err_state": err_state, "state_rtol": srtol,
+                "state_atol": satol,
+                "max_abs_err_vs_plain_same_dtype": err_plain,
+                "ms": cases.time_ms(lambda: ssd.ssd_scan_cuda(
+                    x, dt, A, B, C, chunk=chunk, initial_state=st)),
+                "plain_ms": cases.time_ms(lambda: ssd.ssd_scan_plain(
+                    x, dt, A, B, C, chunk=chunk, initial_state=st), iters=10),
+                "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": n_bytes, "ops": n_ops,
+            }
+            log(f"ssd_scan {name:36s} {rec['dtype']:8s} max|err| y {err:.3e} "
+                f"(rtol {rtol}, atol {atol}) state {err_state:.3e} vs f32 plain, "
+                f"y {err_plain:.3e} vs {rec['dtype']} plain  kernel "
+                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  library "
+                f"none  bound {bound_ms:.4f} ms ({bound_by})")
+            if not close:
+                raise AssertionError(f"ssd_scan {name} {dtype}: kernel disagrees "
+                                     f"with plain, y {err}, state {err_state}")
+            scan.append(rec)
+    return tree, scan
+
+
 def reference_check(torch, np):
     """Phase 4: the smoke-size engine on the card against the same engine on
     the CPU (plain versions), same weights and draws."""
@@ -354,6 +506,67 @@ def reference_check(torch, np):
         f"{[len(c) for c in committed['cuda']]}")
     if not same:
         raise AssertionError(f"card {committed['cuda']} != CPU {committed['cpu']}")
+    contiguous_reference_check(torch, np, dcfg, prompts)
+
+
+CONTIGUOUS_CHECK_ROUNDS = {
+    # target arch: [(J, tree, lengths), ...], contiguous layout
+    "qwen2.5-3b": [(1, False, [4, 2, 3]), (1, False, [1, 4, 4]),
+                   (1, False, [3, 3, 2]), (1, True, [4, 2, 3]),
+                   (2, True, [3, 4, 2]), (3, True, [2, 3, 4])],
+    "mamba2-130m": [(1, False, [4, 2, 3]), (1, False, [1, 4, 4]),
+                    (1, False, [3, 3, 2])],
+    "zamba2-2.7b": [(1, False, [4, 2, 3]), (1, False, [1, 4, 4]),
+                    (1, False, [3, 3, 2])],
+}
+
+
+def contiguous_reference_check(torch, np, dcfg, prompts):
+    """Phase 4, contiguous: the dense smoke engine's J=1 and tree rounds and
+    the mamba2 / zamba2 smoke targets' J=1 rounds, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import RoundDraws, TreeDraws
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SpecEngine
+
+    for arch, rounds in CONTIGUOUS_CHECK_ROUNDS.items():
+        tcfg = get_config(arch).smoke()
+        committed, launched = {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = SpecEngine(tcfg, dcfg, max_len=96, device=dev)
+            eng.init_params(0)
+            if dev == "cuda":
+                eng.t_params, eng.d_params = (_to(torch, p, "cuda")
+                                              for p in ref_params)
+            else:
+                ref_params = (eng.t_params, eng.d_params)
+            ops.reset_counts()
+            st = eng.start(prompts.to(dev))
+            for r, (J, tree, lengths) in enumerate(rounds):
+                L = max(lengths)
+                draws = (RoundDraws.sample(300 + r, 3, L, 64, 257, device="cpu")
+                         if J == 1 else
+                         TreeDraws.sample(300 + r, 3, J, L, 64, 257,
+                                          device="cpu"))
+                h0 = eng.host_syncs
+                st, _, _ = eng.spin_round(st, np.asarray(lengths),
+                                          draws.to(dev), draft_width=J,
+                                          tree=tree)
+                assert eng.host_syncs - h0 == (2 if tree else 1)
+            committed[dev] = [[int(t) for t in c] for c in st.committed]
+            launched[dev] = {k: v["kernel"] for k, v in ops.counts().items()
+                             if v["kernel"]}
+            if dev == "cuda":
+                assert all(v["plain"] == 0 for v in ops.counts().values()), \
+                    ops.counts()
+        same = committed["cpu"] == committed["cuda"]
+        log(f"reference check (contiguous, {arch} smoke target, "
+            f"{len(rounds)} rounds): card == CPU committed tokens: {same}; "
+            f"lengths {[len(c) for c in committed['cuda']]}; card launches "
+            f"{launched['cuda']}")
+        if not same:
+            raise AssertionError(f"{arch}: card {committed['cuda']} != CPU "
+                                 f"{committed['cpu']}")
 
 
 def _to(torch, tree, device):
@@ -366,10 +579,13 @@ def _to(torch, tree, device):
 
 def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
               scheme_params, path_ops, syncs, min_width, n_rounds,
-              device="cuda", K=8, M=128, NEW=64, max_len=1024):
-    """Phases 5 and 6: one serving path at full width, through the cell.
-    ``path_ops`` are the kernels every round must launch; every plain
-    counter must stay 0.  Returns (launch counts, per-round records)."""
+              cache_kind="paged", start_ops=None, device="cuda", K=8, M=128,
+              NEW=64, max_len=1024):
+    """Phases 5-8: one serving path at full width, through the cell.
+    Counters are set to 0 just before ``start()``; ``start_ops`` maps the
+    kernels the prefill must launch to their launch count, ``path_ops`` are
+    the kernels every round must launch; every plain counter must stay 0.
+    Returns (launch counts, per-round records, launch counts of start)."""
     from repro_torch.api import (
         CellConfig,
         ChannelConfig,
@@ -382,18 +598,30 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = SpecEngine(tcfg, dcfg, max_len=max_len, cache_dtype=cache_dtype,
-                        cache_kind="paged", page_size=16, device=device)
+                        cache_kind=cache_kind, page_size=16, device=device)
     engine.init_params(0)
+    paged = cache_kind == "paged"
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, tcfg.vocab_size, (K, M), generator=gen,
                             device=device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t1 = time.perf_counter()
     state = engine.start(prompts)
     torch.cuda.synchronize()
-    log(f"{label}: weights + prefill of {K}x{M} in "
-        f"{time.perf_counter() - t0:.2f} s; pool {engine.num_pages} pages; "
-        f"params target {engine.target.num_params(engine.t_params)} "
-        f"draft {engine.draft.num_params(engine.d_params)}; device memory "
-        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    at_start = ops.counts()
+    started = {k: v["kernel"] for k, v in at_start.items() if v["kernel"]}
+    for op, n in (start_ops or {}).items():
+        assert at_start[op]["kernel"] == n, (op, n, at_start)
+    assert all(c["plain"] == 0 for c in at_start.values()), at_start
+    log(f"{label}: weights in {t1 - t0:.2f} s, {cache_kind} prefill of "
+        f"{K}x{M} in {time.perf_counter() - t1:.2f} s"
+        + (f"; pool {engine.num_pages} pages" if paged else "")
+        + f"; params target {engine.target.num_params(engine.t_params)} "
+        f"draft {engine.draft.num_params(engine.d_params)}; cache bytes "
+        f"{engine.pool_stats()['cache_bytes']}; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; launches in "
+        f"start() {started}")
     backend = EngineBackend(engine, state)
     rng = np.random.default_rng(0)
     cfg = CellConfig(scheme=scheme, scheme_params=dict(scheme_params),
@@ -408,7 +636,6 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
                             prompt=tuple(int(t) for t in host_prompts[i])))
 
     torch.cuda.synchronize()
-    ops.reset_counts()
     rounds, total_tokens, total_s = [], 0, 0.0
     for i in range(n_rounds):
         before = ops.counts()
@@ -430,8 +657,9 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
             assert after[op]["kernel"] > before[op]["kernel"], (i, op, after)
         for op in ops.OPS:
             assert after[op]["plain"] == 0, (i, op, after)
-        engine.t_pages.check_invariants()
-        engine.d_pages.check_invariants()
+        if paged:
+            engine.t_pages.check_invariants()
+            engine.d_pages.check_invariants()
         assert engine.host_syncs - h0 == syncs, \
             f"round {i}: {engine.host_syncs - h0} syncs"
         assert sum(grew) == int(acc.sum()), (grew, acc)
@@ -447,6 +675,7 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
     for op in path_ops:
         assert counts[op]["kernel"] > 0, counts
     assert all(c["plain"] == 0 for c in counts.values()), counts
+    assert len(rounds) == n_rounds, f"{label}: drained after {len(rounds)} rounds"
     profile_rounds(torch, cell, PROFILE_ROUNDS, label)
     vocab = tcfg.vocab_size
     for c in backend.state.committed:
@@ -457,7 +686,7 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
         f"mean round {1e3 * total_s / len(rounds):.2f} ms; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
         f"summary {cell.summary()}")
-    return counts, rounds
+    return counts, rounds, at_start
 
 
 def profile_rounds(torch, cell, n, label):
@@ -519,6 +748,8 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_tree_attention as pta
     from repro_torch.kernels import residual_sample as rs
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import tree_attention as ta
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -541,12 +772,20 @@ def main() -> int:
     # 3. kernels against their plain versions
     paged, verify = check_kernels(torch, cases, pa, fvs)
     tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
+    ctree, scan = check_contiguous_kernels(torch, cases, pta, ta, ssd)
 
     # 4. small-input reference check
     reference_check(torch, np)
 
-    # 5. the J=1 path, then 6. the tree path, each on its own engine
+    # 5. the J=1 path, 6. the tree path, 7. the contiguous tree path and
+    # 8. the hybrid path, each on its own engine, the last one freed first
     from repro_torch.configs import get_config
+
+    def free(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{label} engine freed: device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
     pair = (get_config("llama2-7b").replace(**bf16),
@@ -556,30 +795,46 @@ def main() -> int:
         torch, np, ops, *pair, label="J=1 path", scheme="hete",
         scheme_params={}, path_ops=("paged_attention", "fused_verify_sample"),
         syncs=1, min_width=1, n_rounds=MAIN_ROUNDS)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"J=1 engine freed: device memory allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    free("J=1")
     runs["tree"] = main_path(
         torch, np, ops, *pair, label="tree path", scheme="multidraft",
         scheme_params={"J_min": 2, "J_max": 3},
         path_ops=("paged_attention", "paged_tree_attention",
                   "gather_softmax_prob", "residual_sample"),
         syncs=2, min_width=2, n_rounds=TREE_ROUNDS)
+    free("tree")
+    runs["contiguous tree"] = main_path(
+        torch, np, ops, *pair, label="contiguous tree path",
+        scheme="multidraft", scheme_params={"J_min": 2, "J_max": 3},
+        path_ops=("tree_attention", "gather_softmax_prob", "residual_sample"),
+        syncs=2, min_width=2, n_rounds=CONTIGUOUS_ROUNDS,
+        cache_kind="contiguous")
+    free("contiguous tree")
+    zamba = get_config("zamba2-2.7b").replace(**bf16)
+    runs["hybrid"] = main_path(
+        torch, np, ops, zamba, pair[1], torch.bfloat16, label="hybrid path",
+        scheme="hete", scheme_params={}, path_ops=("fused_verify_sample",),
+        syncs=1, min_width=1, n_rounds=HYBRID_ROUNDS, cache_kind="contiguous",
+        start_ops={"ssd_scan": zamba.num_layers}, NEW=10 ** 6)
 
-    # 7. result lines
+    # 9. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))
 
     def entry(name, source, replaces, rec, recs):
-        per_round = {path: counts[name]["kernel"] / len(rounds)
-                     for path, (counts, rounds) in runs.items()
-                     if counts[name]["kernel"]}
+        per_round = {path: (counts[name]["kernel"] - start[name]["kernel"])
+                     / len(rounds)
+                     for path, (counts, rounds, start) in runs.items()
+                     if counts[name]["kernel"] > start[name]["kernel"]}
+        per_start = {path: start[name]["kernel"]
+                     for path, (_, _, start) in runs.items()
+                     if start[name]["kernel"]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(c[name]["kernel"] for c, _ in runs.values()),
+                "launches": sum(c[name]["kernel"] for c, _, _ in runs.values()),
                 "launches_per_round": per_round,
+                "launches_per_admission": per_start,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -603,7 +858,14 @@ def main() -> int:
         entry("residual_sample", f"{csrc}/residual_sample.cu",
               f"{tpu}/residual_sample.py:91", pick(residual, RESIDUAL_HEADLINE),
               residual),
+        entry("tree_attention", f"{csrc}/tree_attention.cu",
+              f"{tpu}/tree_attention.py:145",
+              pick(ctree, *CONTIGUOUS_TREE_HEADLINE), ctree),
+        entry("ssd_scan", f"{csrc}/ssd_scan.cu", f"{tpu}/ssd_scan.py:93",
+              pick(scan, *SSD_HEADLINE), scan),
     ]
+    for k in kernels:
+        assert k["launches"] > 0, f"{k['name']} launched on no path"
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

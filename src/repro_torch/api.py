@@ -1,14 +1,15 @@
-"""The public names of the port's first slice: the J=1 paged serving path.
+"""The public names of the port: the serving path on either cache layout.
 
     from repro_torch.api import (CellConfig, EngineBackend, MultiSpinCell,
                                  Request, SpecEngine)
 
-    engine = SpecEngine(tcfg, dcfg, cache_kind="paged")      # on the card
+    engine = SpecEngine(tcfg, dcfg)       # contiguous, on the card
     engine.init_params(0)
     backend = EngineBackend(engine, engine.start(prompts))
     cell = MultiSpinCell(CellConfig(scheme="hete"), backend=backend)
 
-The gateway, continuous batching and the compiled round path come in later
+``SpecEngine(..., cache_kind="paged")`` serves churn from a page pool.  The
+gateway, continuous batching and the compiled round path come in later
 slices (ROADMAP A8-A10).
 """
 

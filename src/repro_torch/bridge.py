@@ -1,11 +1,15 @@
 """Carry JAX-package parameters across into the port.
 
-``params_from_jax(cfg, tree)`` turns a ``repro`` ``DecoderLM.init`` pytree,
-given as numpy arrays (``embed``, ``ln_f``, ``unembed`` and ``blocks``
-stacked on a leading layer axis), into the port's parameters: the same
-names, one dict per layer in a list.  Projections keep their (in, out)
-layout: the port computes ``x @ W`` exactly as the JAX package does, so no
-weight is transposed.  This module imports neither jax nor ``repro``.
+``params_from_jax(cfg, tree)`` turns a ``repro`` model's ``init`` pytree,
+given as numpy arrays, into the port's parameters: the same names, with
+every stacked layer axis unrolled into python lists of per-layer dicts —
+``blocks`` (dense ``DecoderLM`` and ``MambaLM``: one leading layer axis)
+and ``mamba`` (``HybridLM``: leading (groups, group_size) axes); the other
+entries (``embed``, ``ln_f``, ``unembed`` when embeddings are not tied, the
+hybrid's ``shared`` block) carry over as they are.  Projections keep their
+(in, out) layout: the port computes ``x @ W`` exactly as the JAX package
+does, so no weight is transposed.  This module imports neither jax nor
+``repro``.
 """
 
 from __future__ import annotations
@@ -24,17 +28,26 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)      # a writable copy
 
 
-def _convert(tree, device, layer=None):
+def _convert(tree, device, index=()):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, layer) for k, v in tree.items()}
-    return _tensor(tree if layer is None else np.asarray(tree)[layer], device)
+        return {k: _convert(v, device, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return _tensor(a[index] if index else a, device)
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
-    """A dense ``DecoderLM.init`` pytree (numpy leaves) -> port parameters."""
+    """A dense ``DecoderLM``, ``MambaLM`` or ``HybridLM`` init pytree
+    (numpy leaves) -> port parameters."""
     if cfg.num_experts or "dense_blocks" in tree:
         raise NotImplementedError("MoE stacks are not ported yet (ROADMAP A12)")
-    params = {k: _convert(v, device) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = [_convert(tree["blocks"], device, layer=i)
-                        for i in range(cfg.num_layers)]
+    params = {k: _convert(v, device) for k, v in tree.items()
+              if k not in ("blocks", "mamba")}
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.hybrid_group
+        params["mamba"] = [[_convert(tree["mamba"], device, (g, i))
+                            for i in range(cfg.hybrid_group)]
+                           for g in range(groups)]
+    else:
+        params["blocks"] = [_convert(tree["blocks"], device, (i,))
+                            for i in range(cfg.num_layers)]
     return params

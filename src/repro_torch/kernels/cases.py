@@ -414,3 +414,145 @@ def compare_residual(got, want, p, q, u) -> dict:
             cdf_step_ok(hp[b], hq[b], hu[b], got[b], want[b]) for b in diff),
         "tokens": got.tolist(),
     }
+
+
+# ---------------------------------------------------------------------------
+# tree attention over a contiguous cache
+# ---------------------------------------------------------------------------
+
+def contiguous_tree_case(B, J, L, H, KV, D, S, ctx, dtype, device, seed=0,
+                         chain=False):
+    """Tree-window inputs (q, k_cache, v_cache, lengths, win_mask) of a
+    T = J*L+1 window over (B, S, KV, D) caches: committed lengths of
+    ctx/2..ctx tokens (at most S - T, so the window fits), the mask from
+    ``tree_mask`` (or lower-triangular with ``chain``)."""
+    T = J * L + 1
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, T, H, D), generator=g)
+    kc = torch.randn((B, S, KV, D), generator=g)
+    vc = torch.randn((B, S, KV, D), generator=g)
+    lengths = torch.randint(max(0, ctx // 2), min(ctx, S - T) + 1, (B,),
+                            generator=g)
+    if chain:
+        mask = torch.tril(torch.ones((T, T), dtype=torch.bool)).expand(B, T, T)
+    else:
+        mask = tree_mask(B, J, L, seed=seed)
+    return (q.to(device, dtype), kc.to(device, dtype), vc.to(device, dtype),
+            lengths.to(device, torch.int32), mask.contiguous().to(device))
+
+
+def contiguous_tree_held(q, k_cache, v_cache, lengths, win_mask):
+    """The plain version in float32 on the same inputs (as
+    ``paged_attention_held``)."""
+    from .tree_attention import tree_attention_plain
+
+    return tree_attention_plain(q.float(), k_cache.float(), v_cache.float(),
+                                lengths, win_mask)
+
+
+def as_pages(k_cache, v_cache, ps: int = 16):
+    """The same keys laid out in pages: (B, S, KV, D) caches as
+    (B * S/ps, ps, KV, D) pools and the (B, S/ps) table that maps row b's
+    slot s to page b * S/ps + s (a view, no copy)."""
+    B, S, KV, D = k_cache.shape
+    n = S // ps
+    table = torch.arange(B * n, dtype=torch.int32,
+                         device=k_cache.device).reshape(B, n)
+    return (k_cache.reshape(B * n, ps, KV, D), v_cache.reshape(B * n, ps, KV, D),
+            table)
+
+
+def _contiguous_visible(lengths, win_mask, S):
+    """(B, T, S) bool: the keys each query row sees, on the host."""
+    ln, wm = lengths.cpu().long(), win_mask.cpu()
+    B, T = wm.shape[:2]
+    kpos = torch.arange(S)
+    w = kpos[None] - ln[:, None]
+    in_win = (w >= 0) & (w < T)
+    allow = wm.gather(2, w.clamp(0, T - 1)[:, None].expand(B, T, S))
+    return (kpos[None] < ln[:, None])[:, None] | (allow & in_win[:, None])
+
+
+def contiguous_tree_work(q, k_cache, v_cache, lengths, win_mask):
+    """(bytes, operations) contiguous tree attention needs for these inputs:
+    q, the output, lengths and mask once, the K/V rows below each row's
+    window end (min(lengths + T, S)) across all kv heads, and 4*D
+    operations per visible (query head, key)."""
+    B, T, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    item = q.element_size()
+    keys = int((lengths.cpu().long() + T).clamp(max=S).sum())
+    n_bytes = (2 * q.numel() * item + lengths.numel() * 4 + win_mask.numel()
+               + 2 * keys * KV * D * item)
+    ops = 4 * H * D * int(_contiguous_visible(lengths, win_mask, S).sum())
+    return n_bytes, ops
+
+
+def contiguous_tree_sdpa_inputs(q, k_cache, v_cache, lengths, win_mask):
+    """The same attention as one library call's operands: (B, H, S, D) K/V
+    (GQA heads expanded) and the (B, 1, T, S) boolean mask of the keys each
+    row sees.  Built once, outside any timing."""
+    B, T, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    k = k_cache.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    v = v_cache.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    mask = _contiguous_visible(lengths, win_mask, S).to(q.device)[:, None]
+    return q.transpose(1, 2).contiguous(), k, v, mask
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+# (rtol, atol) of the kernel's y against ``ssd_scan_held``: float32 is the
+# band of ``tests/test_kernels.py`` for the scan (the kernel and the plain
+# version decay by exp(acum_i - acum_j) and exp(segsum) and sum in other
+# orders); a bfloat16 y is the kernel's float32 result rounded once, so the
+# band is twice one bfloat16 rounding (as ``PAGED_TOL``).  The final state
+# is float32 on both routes and keeps the float32 band.
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-3)}
+SSD_STATE_TOL = (1e-4, 1e-4)
+
+
+def ssd_case(b, s, h, p, g, n, dtype, device, seed=0, init=False):
+    """(x, dt, A, B, C, initial_state) with the distributions of the JAX
+    package's scan test: x, B, C ~ N(0, 1) in ``dtype``, dt = softplus(N(0,
+    1)) and A = -exp(N(0, 1) / 2) in float32, an N(0, 1) float32 initial
+    state with ``init`` (else None)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen))
+    A = -torch.exp(torch.randn((h,), generator=gen) * 0.5)
+    B = torch.randn((b, s, g, n), generator=gen)
+    C = torch.randn((b, s, g, n), generator=gen)
+    state = torch.randn((b, h, p, n), generator=gen) if init else None
+    return (x.to(device, dtype), dt.to(device), A.to(device),
+            B.to(device, dtype), C.to(device, dtype),
+            None if state is None else state.to(device))
+
+
+def ssd_scan_held(x, dt, A, B, C, chunk, initial_state=None):
+    """The plain version in float32 on the same inputs (bfloat16 ones
+    upcast exactly)."""
+    from .ssd_scan import ssd_scan_plain
+
+    return ssd_scan_plain(x.float(), dt, A, B.float(), C.float(), chunk=chunk,
+                          initial_state=initial_state)
+
+
+def ssd_work(x, dt, A, B, C, chunk, initial_state=None) -> tuple[int, int]:
+    """(bytes, operations) of the chunked scan: x, B, C, dt, A (and the
+    initial state) read once, y and the final state written once; per
+    chunk, head and batch row the causal scores (Lc(Lc+1)/2 dot products
+    of n), their product with x dt (Lc(Lc+1)/2 p), the carried state's
+    contribution and update (2 Lc p n), two operations per multiply-add."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    item = x.element_size()
+    n_bytes = ((2 * x.numel() + B.numel() + C.numel()) * item
+               + dt.numel() * 4 + A.numel() * 4 + b * h * p * n * 4
+               * (2 if initial_state is not None else 1))
+    n_chunks = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    ops = 2 * b * h * n_chunks * (tri * (n + p) + 2 * chunk * p * n)
+    return n_bytes, ops

@@ -1,11 +1,14 @@
-"""Public entry points of the kernels on the paged serving path.
+"""Public entry points of the kernels on the serving paths.
 
-Each op dispatches by the device of its tensors, with no switch and no
-fallback: a CUDA tensor launches the hand-written CUDA kernel (and raises if
-the kernel does not build, take the inputs or launch); a CPU tensor runs
-the plain PyTorch version beside the kernel.  Every op keeps two counters,
-kernel launches (counted by the wrapper where it launches) and plain calls
-(counted here), so a run can show which path it went through.
+Each op in ``OPS`` dispatches by the device of its tensors, with no switch
+and no fallback: a CUDA tensor launches the hand-written CUDA kernel (and
+raises if the kernel does not build, take the inputs or launch); a CPU
+tensor runs the plain PyTorch version beside the kernel.  Every op keeps two
+counters, kernel launches (counted by the wrapper where it launches) and
+plain calls (counted here), so a run can show which path it went through.
+``ssd_decode`` is not among them: the one-token SSD recurrence has no kernel
+in the JAX package either and is plain PyTorch on every device, so "every
+plain counter is 0" still means that no kernel was bypassed.
 """
 
 from __future__ import annotations
@@ -18,13 +21,16 @@ from . import fused_verify_sample as _fvs
 from . import gather_softmax_prob as _gsp
 from . import paged_attention as _pa
 from . import paged_tree_attention as _pta
+from . import ref as _ref
 from . import residual_sample as _rs
+from . import ssd_scan as _ssd
+from . import tree_attention as _ta
 
 OPS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
-       "gather_softmax_prob", "residual_sample")
+       "gather_softmax_prob", "residual_sample", "tree_attention", "ssd_scan")
 _MODULES = {"paged_attention": _pa, "fused_verify_sample": _fvs,
             "paged_tree_attention": _pta, "gather_softmax_prob": _gsp,
-            "residual_sample": _rs}
+            "residual_sample": _rs, "tree_attention": _ta, "ssd_scan": _ssd}
 _plain_calls = {name: 0 for name in OPS}
 
 
@@ -156,4 +162,67 @@ def residual_sample(p, q, u):
             _plain_calls["residual_sample"] += 1
             out = _rs.residual_sample_plain(p, q, u)
         sp.attach(out)
+    return out
+
+
+def tree_attention(q, k_cache, v_cache, lengths, win_mask):
+    """Token-tree window attention over a contiguous KV cache.
+
+    q: (B, T, H, D) with T <= 64; caches: (B, S, KV, D) with the window
+    already written at positions [lengths, lengths + T); lengths: (B,) int32
+    committed kv count; win_mask: (B, T, T) bool ancestor-or-self matrix (a
+    lower-triangular mask is the sequential causal window).
+    Returns (B, T, H, D).
+    """
+    route = _route(q)
+    with _span("ops.tree_attention", q, route) as sp:
+        if route == "cuda":
+            out = _ta.tree_attention_cuda(q, k_cache, v_cache, lengths,
+                                          win_mask)
+        else:
+            _plain_calls["tree_attention"] += 1
+            out = _ta.tree_attention_plain(q, k_cache, v_cache, lengths,
+                                           win_mask)
+        sp.attach(out)
+    return out
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int = 64, initial_state=None):
+    """Chunked SSD forward (see ``ref.ssd_scan_ref`` for shapes).
+
+    The sequence is zero-padded to a chunk multiple on both routes, as in
+    the JAX package: dt = 0 padding is exact (decay e^0 = 1, update 0), so
+    the final state is untouched.  Returns (y (b, s, h, p), final state
+    (b, h, p, n) float32).
+    """
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+    route = _route(x)
+    with _span("ops.ssd_scan", x, route) as sp:
+        if route == "cuda":
+            y, fs = _ssd.ssd_scan_cuda(
+                x.contiguous(), dt.contiguous(), A.contiguous(),
+                B.contiguous(), C.contiguous(), chunk=chunk,
+                initial_state=(None if initial_state is None
+                               else initial_state.contiguous()))
+        else:
+            _plain_calls["ssd_scan"] += 1
+            y, fs = _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                        initial_state=initial_state)
+        sp.attach(y)
+    return (y[:, :s] if pad else y), fs
+
+
+def ssd_decode(x, dt, A, B, C, state):
+    """One-token SSD recurrence, plain PyTorch on every device (no kernel,
+    no counter).  x (b, h, p); dt (b, h); A (h,); B, C (b, g, n); state
+    (b, h, p, n) -> (y (b, h, p), new state float32)."""
+    with _span("ops.ssd_decode", x, "plain") as sp:
+        out = _ref.ssd_decode_ref(x, dt, A, B, C, state)
+        sp.attach(out[0])
     return out

@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the kernels on the paged serving path.
+"""Plain PyTorch versions of the kernels on the serving paths.
 
 Each function is the semantic ground truth of one hand-written CUDA kernel
 in ``csrc/``: the CPU path of ``ops.py`` runs it, and the card tests hold
 the kernel against it on the same inputs.  The functions mirror the JAX
 package's oracles operation for operation, with the deliberate differences
 noted at ``paged_attention_ref`` and ``paged_tree_attention_ref`` (rows
-that see no key).
+that see no key).  ``ssd_decode_ref`` has no kernel: the one-token
+recurrence is plain PyTorch on every device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,6 +59,44 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     seen = valid.any(dim=-1)[:, None, None, :, None]              # (B,1,1,T,1)
     probs = torch.where(seen, probs, torch.zeros((), device=q.device))
     out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
+    return out.reshape(B, T, H, D)
+
+
+def tree_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, lengths: torch.Tensor,
+                       win_mask: torch.Tensor,
+                       scale: float | None = None) -> torch.Tensor:
+    """Token-tree verification window over a contiguous KV cache.
+
+    q: (B, T, H, D) — the T-token tree window (slot 0 the pending token,
+        slots 1.. the tree nodes in construction order).
+    k_cache / v_cache: (B, S, KV, D); the window's K/V are already written
+        at positions [lengths_b, lengths_b + T) (update-then-attend order).
+    lengths: (B,) committed kv count — every query row attends [0, lengths_b).
+    win_mask: (B, T, T) bool — query row t attends window position
+        lengths_b + t' iff win_mask[b, t, t'] (the tree's ancestor-or-self
+        matrix; a lower-triangular mask is the sequential causal window).
+    Returns (B, T, H, D).  The probabilities are cast to the cache dtype
+    before the PV product, as in the JAX oracle.
+    """
+    B, T, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, T, KV, G, D)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k_cache).float() * scale
+    kpos = torch.arange(S, device=q.device)
+    base = lengths.long()[:, None]                                 # (B, 1)
+    committed = (kpos[None, :] < base)[:, None, :]                 # (B, 1, S)
+    w = kpos[None, :] - base                                       # (B, S)
+    in_win = (w >= 0) & (w < T)
+    idx = w.clamp(0, T - 1)[:, None, :].expand(B, T, S)
+    allow = win_mask.bool().gather(2, idx) & in_win[:, None, :]    # (B, T, S)
+    valid = committed | allow
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.full((), _NEG, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v_cache)
     return out.reshape(B, T, H, D)
 
 
@@ -184,3 +223,100 @@ def fused_verify_sample_ref(target_logits: torch.Tensor,   # (B, L+1, V)
     q_rej.scatter_add_(1, idx_rej, val_rej)
     calibrated = residual_sample_ref(p_rej, q_rej, u_resid)
     return accept, n_acc.to(torch.int32), calibrated
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) chunked scan
+# ---------------------------------------------------------------------------
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k] (i >= j),
+    -inf above the diagonal."""
+    T = x.shape[-1]
+    xx = x[..., None].expand(*x.shape, T)            # xx[..., k, j] = x_k
+    below = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device),
+                       diagonal=-1)                  # keep rows k > col j
+    xx = torch.where(below, xx, torch.zeros((), dtype=x.dtype, device=x.device))
+    out = torch.cumsum(xx, dim=-2)
+    keep = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return torch.where(keep, out,
+                       torch.full((), -math.inf, dtype=x.dtype, device=x.device))
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int = 64,
+                 initial_state: torch.Tensor | None = None):
+    """Chunked SSD forward (Mamba-2, arXiv:2405.21060 listing 1).
+
+    x:  (b, s, h, p)   head inputs
+    dt: (b, s, h)      positive step sizes (softplus already applied)
+    A:  (h,)           negative decay rates
+    B:  (b, s, g, n)   input projections (g groups, g | h)
+    C:  (b, s, g, n)   output projections
+    initial_state: (b, h, p, n) float32 or None (zeros).
+    Returns (y (b, s, h, p) in x's dtype, final_state (b, h, p, n) float32).
+    The sequence must be a chunk multiple (``ops.ssd_scan`` pads).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    rep = h // g
+    Bh = B.repeat_interleave(rep, dim=2)              # (b, s, h, n)
+    Ch = C.repeat_interleave(rep, dim=2)
+
+    xw = (x * dt[..., None]).float()                  # dt-weighted input
+    Abar = (A[None, None, :] * dt).float()            # (b, s, h)
+
+    c = s // chunk
+    xw = xw.reshape(b, c, chunk, h, p)
+    Bh = Bh.reshape(b, c, chunk, h, n).float()
+    Ch = Ch.reshape(b, c, chunk, h, n).float()
+    Ab = Abar.reshape(b, c, chunk, h).permute(0, 3, 1, 2)   # (b, h, c, l)
+    A_cum = torch.cumsum(Ab, dim=-1)                         # (b, h, c, l)
+
+    # intra-chunk (diagonal blocks)
+    Lmat = torch.exp(_segsum(Ab))                            # (b, h, c, l, l)
+    Y_diag = torch.einsum("bclhn,bcshn,bhcls,bcshp->bclhp", Ch, Bh, Lmat, xw)
+
+    # chunk end-states
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum)        # (b, h, c, l)
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bh, decay_states, xw)
+
+    if initial_state is None:
+        initial_state = torch.zeros((b, h, p, n), dtype=torch.float32,
+                                    device=x.device)
+    states = torch.cat([initial_state[:, None].float(), states], dim=1)
+
+    # inter-chunk recurrence
+    chunk_decay = A_cum[..., -1]                             # (b, h, c)
+    padded = torch.nn.functional.pad(chunk_decay, (1, 0))
+    decay_chunk = torch.exp(_segsum(padded))                 # (b, h, c+1, c+1)
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
+    prev_states, final_state = new_states[:, :-1], new_states[:, -1]
+
+    # inter-chunk contribution to the outputs
+    state_decay_out = torch.exp(A_cum)                       # (b, h, c, l)
+    Y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Ch, prev_states,
+                         state_decay_out)
+
+    y = (Y_diag + Y_off).reshape(b, s, h, p)
+    return y.to(x.dtype), final_state
+
+
+def ssd_decode_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, state: torch.Tensor):
+    """One-token SSD recurrence.
+
+    x: (b, h, p); dt: (b, h); A: (h,); B, C: (b, g, n); state: (b, h, p, n).
+    Returns (y (b, h, p) in x's dtype, new_state float32).
+    """
+    h = x.shape[1]
+    rep = h // B.shape[1]
+    Bh = B.repeat_interleave(rep, dim=1).float()             # (b, h, n)
+    Ch = C.repeat_interleave(rep, dim=1).float()
+    decay = torch.exp(A[None, :] * dt)                        # (b, h)
+    upd = (dt[..., None] * x.float())[..., None] * Bh[:, :, None, :]
+    new_state = decay[..., None, None] * state + upd          # (b, h, p, n)
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x.dtype), new_state

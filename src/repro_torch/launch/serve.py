@@ -4,8 +4,10 @@
       --smoke --devices 4 --rounds 6 --scheme hete
 
 Stands up a ``MultiSpinCell`` (controller + channel + scheduler) with the
-port's real-model ``EngineBackend`` on a paged ``SpecEngine`` and drives the
-session loop, as ``repro.launch.serve`` does.  Runs on the card unless
+port's real-model ``EngineBackend`` on a ``SpecEngine`` and drives the
+session loop, as ``repro.launch.serve`` does.  The engine is built as the
+JAX CLI builds it, ``SpecEngine(target, draft, max_len=512)``: the default
+contiguous cache layout, the batch fixed at start.  Runs on the card unless
 ``--device cpu``.  ``--dry-run`` (lowering under a production mesh) is not
 ported yet (ROADMAP A17).
 """
@@ -71,8 +73,7 @@ def main(argv=None):
     dcfg = tcfg.smoke().replace(num_layers=1, d_model=64, num_heads=2,
                                 num_kv_heads=1, head_dim=32, d_ff=128,
                                 vocab_size=tcfg.vocab_size, name="draft")
-    engine = SpecEngine(tcfg, dcfg, max_len=512, cache_kind="paged",
-                        device=args.device)
+    engine = SpecEngine(tcfg, dcfg, max_len=512, device=args.device)
     engine.init_params(0)
 
     K = args.devices

@@ -3,10 +3,12 @@
 Functional like the JAX package: parameters are plain dicts of tensors with
 the same names and layouts, and projections compute ``x @ W`` with W shaped
 (in, out), so parameters carried across from the JAX package need no
-transpose.  Only the dense paged path is here: sequential windows (prefill,
-draft steps, J=1 verification) and token-tree windows (J > 1 rounds), with
-the K/V window gather/scatter of the tree scatter-commit.  The contiguous
-cache layout and MoE are not ported yet (ROADMAP A2, A12).
+transpose.  Both cache layouts are here: paged pools addressed through a
+page table and contiguous (B, S) slabs, each with sequential windows
+(prefill, draft steps, J=1 verification), token-tree windows (J > 1
+rounds) and the K/V window gather/scatter of the tree scatter-commit; plus
+cache-free attention for full-sequence scoring.  MoE is not ported yet
+(ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -141,9 +143,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query attention core over materialized K/V.
 
     q: (B, Sq, H, D); k, v: (B, Skv, KV, D); mask broadcastable to
-    (B, KV, G, Sq, Skv) or None.  Returns (B, Sq, H, D).  The serving path
-    runs ``ops.paged_attention`` instead; this is the dense formulation
-    the tests compare against.
+    (B, KV, G, Sq, Skv) or None.  Returns (B, Sq, H, D).  Cache-free
+    scoring and the sequential windows of the contiguous layout run it (the
+    JAX package keeps its jnp path there too); the paged path runs
+    ``ops.paged_attention`` instead.
     """
     B, Sq, H, D = q.shape
     KV = k.shape[2]
@@ -160,7 +163,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged KV cache
+# KV caches: contiguous slabs and paged pools
 # ---------------------------------------------------------------------------
 
 def new_page_pool(n_layers: int, num_pages: int, page_size: int,
@@ -172,7 +175,9 @@ def new_page_pool(n_layers: int, num_pages: int, page_size: int,
     memory by one extra (KV, D) slot, the drop bin of
     ``paged_update_kv_cache`` (flat index P * ps, as in the JAX package).
     The slot lies outside the returned view, so shapes and byte accounting
-    are those of the JAX pool."""
+    are those of the JAX pool.  A contiguous (layers, B, S, KV, D) cache is
+    the same layout with P = B rows of ps = S positions: its drop slot takes
+    the dropped writes of ``scatter_kv_window``."""
     P_ps = num_pages * page_size
     base = torch.zeros((n_layers, P_ps + 1, num_kv_heads, head_dim),
                        dtype=dtype, device=device)
@@ -187,10 +192,41 @@ def _flat_with_drop_slot(pool: torch.Tensor) -> torch.Tensor:
     row = math.prod(rest)
     need = (pool.storage_offset() + (P * ps + 1) * row) * pool.element_size()
     if not pool.is_contiguous() or pool.untyped_storage().nbytes() < need:
-        raise ValueError("page pools must be allocated by new_page_pool "
-                         "(each layer carries a trailing drop slot)")
+        raise ValueError("page pools and contiguous caches must be allocated "
+                         "by new_page_pool (each layer carries a trailing "
+                         "drop slot)")
     return pool.as_strided((P * ps + 1,) + rest, (row,) + pool.stride()[2:],
                            pool.storage_offset())
+
+
+def update_kv_cache(cache: torch.Tensor, new: torch.Tensor,
+                    offset) -> torch.Tensor:
+    """Write ``new`` (B, T, KV, D) into ``cache`` (B, S, KV, D) at ``offset``,
+    IN PLACE, and return ``cache``.
+
+    ``offset`` may be a scalar (all rows aligned: prefill) or per-row (B,).
+    As ``jax.lax.dynamic_update_slice`` in the JAX package, each row's start
+    is clamped to [0, S - T] so the whole window lands: a window written at
+    an offset past S - T lands at S - T, neither dropped nor refused.
+    """
+    B, T = new.shape[:2]
+    S = cache.shape[1]
+    offset = torch.as_tensor(offset, device=cache.device)
+    if offset.dim() == 0:
+        offset = offset.expand(B)
+    start = offset.long().clamp(0, S - T)
+    idx = start[:, None] + torch.arange(T, device=cache.device)[None, :]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, idx] = new.to(cache.dtype)
+    return cache
+
+
+def causal_mask(Sq: int, Skv: int, offset: int = 0,
+                device="cuda") -> torch.Tensor:
+    """(1, 1, 1, Sq, Skv) boolean mask: query i attends to kv j <= i+offset."""
+    qi = torch.arange(Sq, device=device)[:, None] + offset
+    kj = torch.arange(Skv, device=device)[None, :]
+    return (kj <= qi)[None, None, None]
 
 
 def paged_update_kv_cache(pool: torch.Tensor, new: torch.Tensor, offset,
@@ -255,13 +291,14 @@ def _drop_or_flat(pos: torch.Tensor, page_table: torch.Tensor, ps: int,
 def gather_kv_window(leaf: torch.Tensor, pos: torch.Tensor,
                      page_table: torch.Tensor | None = None) -> torch.Tensor:
     """Gather K/V rows at logical positions ``pos`` (B, T) from a stacked
-    page pool (Ln, P, ps, KV, D) through ``page_table`` (B, n_slots).
-    Out-of-range and unmapped positions clamp to a valid slot; callers mask
-    by validity.  Returns a new (Ln, B, T, KV, D) tensor.  The contiguous
-    layout (no table) is not ported yet (ROADMAP A2)."""
+    cache leaf: (Ln, B, S, KV, D) contiguous, or (Ln, P, ps, KV, D) pools
+    with ``page_table`` (B, n_slots).  Out-of-range and unmapped positions
+    clamp to a valid slot (contiguous: to [0, S - 1]); callers mask by
+    validity.  Returns a new (Ln, B, T, KV, D) tensor."""
     if page_table is None:
-        raise NotImplementedError(
-            "the contiguous cache layout is not ported yet (ROADMAP A2)")
+        S = leaf.shape[2]
+        rows = torch.arange(leaf.shape[1], device=leaf.device)[:, None]
+        return leaf[:, rows, pos.long().clamp(0, S - 1)]
     ps = leaf.shape[2]
     phys, _, off = _window_flat(pos, page_table, ps)
     return leaf.flatten(1, 2)[:, phys.clamp(min=0) * ps + off]
@@ -270,18 +307,26 @@ def gather_kv_window(leaf: torch.Tensor, pos: torch.Tensor,
 def scatter_kv_window(leaf: torch.Tensor, values: torch.Tensor,
                       pos: torch.Tensor, valid: torch.Tensor,
                       page_table: torch.Tensor | None = None) -> torch.Tensor:
-    """Write ``values`` (Ln, B, T, KV, D) into a stacked page pool at logical
-    positions ``pos`` (B, T) where ``valid`` (B, T), IN PLACE.  Invalid,
-    out-of-range and unmapped positions go to each layer's drop slot (the
+    """Write ``values`` (Ln, B, T, KV, D) into a stacked cache leaf at
+    logical positions ``pos`` (B, T) where ``valid`` (B, T), IN PLACE: a
+    contiguous (Ln, B, S, KV, D) cache, or page pools (Ln, P, ps, KV, D)
+    through ``page_table``.  Invalid, out-of-range and unmapped positions go
+    to each layer's drop slot (the JAX package's ``mode="drop"``, and the
     contract of ``paged_update_kv_cache``).  This is the scatter-commit
     primitive: the engine moves the accepted tree branch's K/V into its
     committed slots instead of re-forwarding the path.  ``values`` must not
     alias ``leaf`` (gather first).  Returns ``leaf``."""
     if page_table is None:
-        raise NotImplementedError(
-            "the contiguous cache layout is not ported yet (ROADMAP A2)")
-    P, ps = leaf.shape[1:3]
-    flat = _drop_or_flat(pos, page_table, ps, P, valid).reshape(-1)
+        B, S = leaf.shape[1:3]
+        pos = pos.long()
+        ok = valid & (pos >= 0) & (pos < S)
+        rows = torch.arange(B, device=leaf.device)[:, None]
+        flat = torch.where(ok, rows * S + pos,
+                           torch.full((), B * S, device=leaf.device))
+    else:
+        P, ps = leaf.shape[1:3]
+        flat = _drop_or_flat(pos, page_table, ps, P, valid)
+    flat = flat.reshape(-1)
     for layer, vals in zip(leaf, values.to(leaf.dtype).flatten(1, 2)):
         _flat_with_drop_slot(layer).index_copy_(0, flat, vals)
     return leaf
@@ -294,8 +339,8 @@ def tree_window_mask(pos: torch.Tensor, window_mask: torch.Tensor,
     position [0, pos_b) plus window position pos_b + t' iff
     ``window_mask[b, t, t']`` (the tree's ancestor-or-self matrix).  With a
     lower-triangular matrix this is the causal window mask.  The serving
-    path runs ``ops.paged_tree_attention`` instead; this is the dense form
-    the tests compare against."""
+    path runs ``ops.paged_tree_attention`` / ``ops.tree_attention``
+    instead; this is the dense form the tests compare against."""
     B, T = window_mask.shape[:2]
     kj = torch.arange(S_max, device=window_mask.device)
     pos = pos.long()
@@ -309,43 +354,60 @@ def tree_window_mask(pos: torch.Tensor, window_mask: torch.Tensor,
 
 def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, positions: torch.Tensor,
-                    rope_theta: float | None, kv_cache, cache_offset,
-                    page_table: torch.Tensor | None,
-                    window_mask: torch.Tensor | None = None):
-    """Attention layer of a window through a paged KV cache.
+                    rope_theta: float | None, kv_cache=None, cache_offset=None,
+                    page_table: torch.Tensor | None = None,
+                    window_mask: torch.Tensor | None = None,
+                    mask: torch.Tensor | None = None):
+    """Full attention layer.  Returns (out, (k, v)): the updated caches, or
+    the fresh keys and values when there is no cache.
 
-    The window's keys and values are written at ``cache_offset`` through
-    ``page_table`` (in place).  A sequential window (no ``window_mask``)
-    then runs ``ops.paged_attention``: row t attends logical positions
-    [0, cache_offset + t].  A token-tree window (``window_mask`` (B, T, T),
-    the ancestor-or-self matrix) runs ``ops.paged_tree_attention``: row t
-    attends [0, cache_offset) plus the window positions its mask allows —
-    its lengths are the offset, not offset + 1.  Returns (out, (k_pool,
-    v_pool)).  Caches without a page table (the contiguous layout) are not
-    ported yet (ROADMAP A2)."""
-    if kv_cache is None or page_table is None:
-        raise NotImplementedError(
-            "the contiguous cache layout and cache-free attention are not "
-            "ported yet (ROADMAP A2); the port serves paged caches")
+    * ``kv_cache=None``: cache-free attention under ``mask`` (full-sequence
+      scoring, ``apply``).
+    * ``page_table`` given: ``kv_cache`` holds page pools (P, ps, KV, D);
+      the window's keys and values are written at ``cache_offset`` through
+      the table (in place).  A sequential window (no ``window_mask``) then
+      runs ``ops.paged_attention`` (row t attends [0, cache_offset + t]); a
+      token-tree window (``window_mask`` (B, T, T), the ancestor-or-self
+      matrix) runs ``ops.paged_tree_attention`` with lengths = offset.
+    * no table: ``kv_cache`` holds contiguous (B, S, KV, D) caches; the
+      window is written at ``cache_offset`` (in place, clamped as
+      ``update_kv_cache``).  A tree window runs ``ops.tree_attention``
+      (lengths = offset); a sequential window runs ``gqa_attention`` over
+      the whole cache under ``mask``, as the JAX package does (the cache IS
+      the attention operand, so there is no gather for a kernel to skip).
+    """
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    k_pool, v_pool = kv_cache
-    paged_update_kv_cache(k_pool, k, cache_offset, page_table)
-    paged_update_kv_cache(v_pool, v, cache_offset, page_table)
+    if kv_cache is None:
+        out = gqa_attention(q, k, v, mask)
+        return out.reshape(B, S, num_heads * head_dim) @ params["wo"], (k, v)
+    k_cache, v_cache = kv_cache
     offset = torch.as_tensor(cache_offset, device=x.device).expand(B)
-    q = q.to(k_pool.dtype).contiguous()
-    if window_mask is not None:
-        ctx = kops.paged_tree_attention(
-            q, k_pool, v_pool, page_table,
-            offset.to(torch.int32).contiguous(), window_mask)
+    q = q.to(k_cache.dtype).contiguous()
+    if page_table is not None:
+        paged_update_kv_cache(k_cache, k, offset, page_table)
+        paged_update_kv_cache(v_cache, v, offset, page_table)
+        if window_mask is not None:
+            ctx = kops.paged_tree_attention(
+                q, k_cache, v_cache, page_table,
+                offset.to(torch.int32).contiguous(), window_mask)
+        else:
+            ctx = kops.paged_attention(q, k_cache, v_cache, page_table,
+                                       (offset + 1).to(torch.int32).contiguous())
     else:
-        ctx = kops.paged_attention(q, k_pool, v_pool, page_table,
-                                   (offset + 1).to(torch.int32).contiguous())
+        update_kv_cache(k_cache, k, offset)
+        update_kv_cache(v_cache, v, offset)
+        if window_mask is not None:
+            ctx = kops.tree_attention(q, k_cache, v_cache,
+                                      offset.to(torch.int32).contiguous(),
+                                      window_mask)
+        else:
+            ctx = gqa_attention(q, k_cache, v_cache, mask)
     out = ctx.to(x.dtype).reshape(B, S, num_heads * head_dim) @ params["wo"]
-    return out, (k_pool, v_pool)
+    return out, (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
-"""Dense decoder-only transformer LM on torch tensors (paged serving path).
+"""Dense decoder-only transformer LM on torch tensors.
 
 The port of ``repro.models.transformer.DecoderLM`` for ``family="dense"``:
 
-  * ``prefill``        — causal forward that writes the paged KV cache at
-    offset 0
-  * ``forward_window`` — T new tokens against the paged cache at per-row
-    offsets: T=1 is a draft step, T=L+1 the speculative-verification window,
-    and with ``window_mask`` / ``window_depth`` a token-tree window of a
+  * ``apply``          — full causal forward (scoring), no cache
+  * ``prefill``        — causal forward that writes the KV cache at offset 0
+  * ``forward_window`` — T new tokens against the cache at per-row offsets:
+    T=1 is a draft step, T=L+1 the speculative-verification window, and
+    with ``window_mask`` / ``window_depth`` a token-tree window of a
     multi-draft round
 
-Parameters keep the JAX package's names and (in, out) layouts, but the
-layers are a python list of per-layer dicts instead of arrays stacked on a
-leading axis; ``bridge.params_from_jax`` converts one into the other.  The
-layer loop is a plain python loop (the counterpart of ``jax.lax.scan``).
-Attention goes through ``ops.paged_attention`` (``ops.paged_tree_attention``
-for tree windows): the CUDA kernel on the card, its plain version on the
-CPU.  Caches are updated in place.
+Two cache layouts, as in the JAX package: contiguous (B, max_len) slabs
+(``init_cache``) and paged pools (``init_paged_cache``) viewed through a
+``"pages"`` page table.  Parameters keep the JAX package's names and (in,
+out) layouts, but the layers are a python list of per-layer dicts instead of
+arrays stacked on a leading axis; ``bridge.params_from_jax`` converts one
+into the other.  The layer loop is a plain python loop (the counterpart of
+``jax.lax.scan``).  Paged attention goes through ``ops.paged_attention``
+(``ops.paged_tree_attention`` for tree windows), contiguous tree windows
+through ``ops.tree_attention``: the CUDA kernels on the card, their plain
+versions on the CPU.  Contiguous sequential windows run ``gqa_attention``
+over the cache, as the JAX package does.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 
 from .layers import (
     attention_apply,
+    causal_mask,
     dense_init,
     embed_init,
     init_attention,
@@ -59,8 +64,8 @@ def strip_view(cache: Params) -> Params:
 class DecoderLM:
     """Dense decoder-only LM parameterized by ``ModelConfig``.
 
-    ``device`` is where ``init`` draws the weights and
-    ``init_paged_cache`` allocates the pools (the card unless the caller
+    ``device`` is where ``init`` draws the weights and ``init_cache`` /
+    ``init_paged_cache`` allocate the caches (the card unless the caller
     asks for the CPU)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -113,9 +118,31 @@ class DecoderLM:
     # Cache
     # ------------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        raise NotImplementedError(
-            "the contiguous cache layout is not ported yet (ROADMAP A2)")
+    def init_cache(self, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> Params:
+        """Contiguous KV cache: every attention leaf is (layers, B, max_len,
+        KV, D), zeroed, each layer followed by the drop slot of
+        ``scatter_kv_window`` (outside the view: shapes and bytes are the
+        JAX cache's)."""
+        cfg = self.cfg
+        args = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": new_page_pool(*args, dtype=dtype, device=self.device),
+                "v": new_page_pool(*args, dtype=dtype, device=self.device)}
+
+    CACHE_BATCH_AXES = {"k": 1, "v": 1}
+
+    def concat_caches(self, caches: list) -> Params:
+        """Stack per-row contiguous caches (ragged prefill) into one batch,
+        in a fresh cache with its drop slots."""
+        out = {}
+        for key in caches[0]:
+            leaves = [c[key] for c in caches]
+            Ln, _, S, KV, D = leaves[0].shape
+            B = sum(int(leaf.shape[1]) for leaf in leaves)
+            out[key] = new_page_pool(Ln, B, S, KV, D, dtype=leaves[0].dtype,
+                                     device=leaves[0].device)
+            out[key].copy_(torch.cat(leaves, dim=self.CACHE_BATCH_AXES[key]))
+        return out
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          dtype=torch.bfloat16) -> Params:
@@ -133,26 +160,35 @@ class DecoderLM:
     # Forward
     # ------------------------------------------------------------------
 
-    def _stack_forward(self, params, x, positions, cache, offset,
-                       window_mask=None):
-        """Run all blocks through the paged cache; returns (hidden, cache)."""
+    def _stack_forward(self, params, x, positions, cache=None, offset=None,
+                       window_mask=None, mask=None):
+        """Run all blocks, through the cache when one is given (paged when
+        it carries ``"pages"``, contiguous otherwise); returns (hidden,
+        cache)."""
         cfg = self.cfg
-        if "pages" not in cache:
-            raise NotImplementedError(
-                "the contiguous cache layout is not ported yet (ROADMAP A2)")
-        page_table = cache["pages"]
+        page_table = cache.get("pages") if cache is not None else None
         for i, p in enumerate(params["blocks"]):
             h = self.norm(p["ln_attn"], x)
             attn_out, _ = attention_apply(
                 p["attn"], h, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                 positions=positions, rope_theta=cfg.rope_theta,
-                kv_cache=(cache["k"][i], cache["v"][i]), cache_offset=offset,
-                page_table=page_table, window_mask=window_mask)
+                kv_cache=(None if cache is None
+                          else (cache["k"][i], cache["v"][i])),
+                cache_offset=offset, page_table=page_table,
+                window_mask=window_mask, mask=mask)
             x = x + attn_out
             h = self.norm(p["ln_mlp"], x)
             x = x + mlp_apply(p["mlp"], h, cfg.activation)
         return x, cache
+
+    @staticmethod
+    def _cache_kv_capacity(cache: Params) -> int:
+        """Logical KV positions per row: S for contiguous (B, S, KV, D)
+        leaves, n_slots * page_size for a paged view."""
+        if "pages" in cache:
+            return cache["pages"].shape[1] * cache["k"].shape[2]
+        return cache["k"].shape[2]
 
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()].to(_dtype(self.cfg.compute_dtype))
@@ -162,8 +198,23 @@ class DecoderLM:
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
         return (x @ w.to(x.dtype)).float()
 
+    def apply(self, params, tokens, prefix_embeds=None):
+        """Full causal forward, no cache.  tokens (B, S) -> (logits (B, S, V)
+        float32, aux=0)."""
+        if prefix_embeds is not None:
+            raise NotImplementedError(
+                "prefix embeddings (VLM / enc-dec) are not ported yet "
+                "(ROADMAP A14)")
+        x = self._embed(params, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, _ = self._stack_forward(params, x, positions,
+                                   mask=causal_mask(S, S, device=x.device))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(params, x), aux
+
     def prefill(self, params, tokens, cache, prefix_embeds=None):
-        """Causal forward writing the paged KV cache at offset 0.
+        """Causal forward writing the KV cache at offset 0.
         tokens (B, S) -> (logits (B, S, V) float32, cache, aux=0)."""
         if prefix_embeds is not None:
             raise NotImplementedError(
@@ -173,13 +224,16 @@ class DecoderLM:
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         offset = torch.zeros((B,), dtype=torch.int32, device=x.device)
-        x, cache = self._stack_forward(params, x, positions, cache, offset)
+        mask = (None if "pages" in cache else
+                causal_mask(S, self._cache_kv_capacity(cache), device=x.device))
+        x, cache = self._stack_forward(params, x, positions, cache, offset,
+                                       mask=mask)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(params, x), cache, aux
 
     def forward_window(self, params, tokens, cache, pos, window_mask=None,
                        window_depth=None):
-        """T new tokens against the paged cache.
+        """T new tokens against an existing cache (contiguous or paged).
 
         tokens: (B, T); pos: (B,) per-row write offsets (current lengths).
         T=1 -> draft step; T=L+1 -> speculative-verification scoring.
@@ -204,8 +258,12 @@ class DecoderLM:
         else:
             offsets = torch.as_tensor(window_depth, device=x.device).long()
         positions = pos[:, None].long() + offsets
+        mask = None
+        if "pages" not in cache and window_mask is None:
+            kj = torch.arange(self._cache_kv_capacity(cache), device=x.device)
+            mask = (kj[None, None, :] <= positions[:, :, None])[:, None, None]
         x, cache = self._stack_forward(params, x, positions, cache, pos,
-                                       window_mask=window_mask)
+                                       window_mask=window_mask, mask=mask)
         return self._logits(params, x), cache
 
     def num_params(self, params) -> int:

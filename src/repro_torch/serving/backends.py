@@ -73,14 +73,17 @@ class SyntheticBackend:
 
 
 class EngineBackend:
-    """Real-model verification through the port's paged ``SpecEngine``.
+    """Real-model verification through the port's ``SpecEngine``.
 
     Requests map onto engine rows in admission order (the cell calls
     ``bind`` as requests are admitted).  The first B requests take the B
-    streams prefilled by ``engine.start()``; every later request is admitted
-    dynamically — ``engine.add_streams`` prefills its prompt into pooled
-    pages (recycling retired rows first) — and ``can_admit`` gates the
-    cell's admission on true page-pool capacity.
+    streams prefilled by ``engine.start()``.  On a paged engine every later
+    request is admitted dynamically — ``engine.add_streams`` prefills its
+    prompt into pooled pages (recycling retired rows first) — and
+    ``can_admit`` gates the cell's admission on true page-pool capacity.  A
+    contiguous engine is full once the start rows are bound: later
+    requests are not servable (the cell rejects them), and mapping one
+    raises "engine batch exhausted".
 
     Rows whose request is not in this call's active set ride through the
     batched forward frozen: they commit nothing and their positions do not
@@ -123,13 +126,17 @@ class EngineBackend:
 
     @property
     def dynamic(self) -> bool:
-        return getattr(self.engine, "cache_kind", "paged") == "paged"
+        return getattr(self.engine, "cache_kind", "contiguous") == "paged"
 
     # -- lifecycle hooks (called by the cell) ---------------------------
 
     def servable(self, request) -> bool:
-        """Whether the request can EVER run on this engine: the prompt plus
-        one generated token has to fit a stream."""
+        """Whether the request can EVER run on this engine.  Paged: the
+        prompt plus one generated token has to fit a stream.  Contiguous:
+        rows are never freed, so only the start batch is served."""
+        if not self.dynamic:
+            return (request.rid in self._row_of
+                    or self._next_start_row < self._start_rows)
         return self._prompt_len(request) + 1 <= self.engine.max_len
 
     def can_admit(self, request) -> bool:
@@ -138,6 +145,8 @@ class EngineBackend:
         the prompt plus one verification window, clamped to max_len."""
         if self._next_start_row < self._start_rows:
             return True
+        if not self.dynamic:
+            return False
         p = self._prompt_len(request)
         length = min(max(p + self.admit_headroom, self.engine.prompt_bucket(p)),
                      self.engine.max_len)
@@ -154,6 +163,8 @@ class EngineBackend:
         for r in requests:
             if self.keep_finished_tokens and r.rid in self._row_of:
                 self._finished_tokens[r.rid] = self.stream_tokens(r.rid)
+            if not self.dynamic:
+                continue
             row = self._row_of.pop(r.rid, None)
             if row is not None:
                 self.engine.retire_stream(row)
@@ -202,10 +213,15 @@ class EngineBackend:
             if self._next_start_row < self._start_rows:
                 self._row_of[r.rid] = self._next_start_row
                 self._next_start_row += 1
-            else:
+            elif self.dynamic:
                 self.state, rows = self.engine.add_streams(
                     self.state, self._prompt_tokens(r)[None, :])
                 self._row_of[r.rid] = rows[0]
+            else:
+                raise ValueError(
+                    f"engine batch exhausted: {self.batch_size} contiguous "
+                    f"streams, cannot map new request rid={r.rid} "
+                    "(cache_kind='paged' serves churn)")
         return self._row_of[r.rid]
 
     # -- the verification step ------------------------------------------

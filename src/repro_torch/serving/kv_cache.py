@@ -1,12 +1,13 @@
-"""Paged KV-cache management for the serving runtime (torch port).
+"""Cache utilities for the serving runtime (torch port).
 
+  * snapshot selection — SSM-state rollback after speculative verification
   * byte accounting — admission control / placement decisions
   * ``PagedKVCache`` — page allocator + per-stream page tables for serving a
     *changing* stream population out of one preallocated pool
 
 The allocator is host-side python and identical to the JAX package's; the
 device-side page-table mirror is a torch int32 tensor flushed by dirty
-rows.  SSM snapshot selection is not ported yet (ROADMAP A13).
+rows.
 """
 
 from __future__ import annotations
@@ -28,6 +29,40 @@ def host_to_device(array, device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def select_snapshots(snapshots: dict, idx: torch.Tensor,
+                     batch_axes: dict) -> dict:
+    """Per-row snapshot selection, on the device.
+
+    snapshots: cache leaves with a leading step axis T (the stacked caches
+    of ``forward_window(..., return_snapshots=True)``).
+    idx: (B,) step index to keep for each row (clamped to [0, T-1]).
+    batch_axes: leaf key -> batch axis in the UNSTACKED cache layout.
+
+    Returns a cache dict (no leading T) where row b carries the state after
+    step idx[b], each leaf a fresh contiguous tensor.
+    """
+    T = next(iter(snapshots.values())).shape[0]
+    idx = idx.long().clamp(0, T - 1)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    out = {}
+    for key, leaf in snapshots.items():
+        ba = batch_axes[key]
+        moved = leaf.movedim(ba + 1, 0)                 # (B, T, ...)
+        out[key] = moved[rows, idx].movedim(0, ba).contiguous()
+    return out
+
+
+def merge_snapshot_into_cache(cache: dict, selected: dict,
+                              keys=("ssm", "conv")) -> dict:
+    """Overwrite the recurrent-state leaves of ``cache`` with rolled-back
+    versions, keeping attention KV leaves (mask-managed) as they are."""
+    out = dict(cache)
+    for k in keys:
+        if k in selected:
+            out[k] = selected[k]
+    return out
 
 
 def _leaves(tree):

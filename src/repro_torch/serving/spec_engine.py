@@ -12,18 +12,25 @@ J=1 round (paper Fig. 2):
   5. state update   — an on-device commit, one host fetch, and the pages of
                        rejected tokens handed back to the pool
 
-Both models' KV lives in fixed-size pages of a preallocated pool
-(``PagedKVCache``): streams may join after ``start()`` (``add_streams``)
-and leave (``retire_stream``), and admission is bounded by the page pool
-(``can_admit``).  ``draft_width`` J > 1 runs the multi-draft TOKEN-TREE
-round instead (``_spin_round_tree``): J drafts per stream packed into a
+Two cache layouts, as in the JAX package:
+
+  * ``cache_kind="contiguous"`` (the default) — (B, max_len) slabs fixed at
+    ``start()``; the stream population can never change.  SSM (``mamba2``)
+    and hybrid (``zamba2``) targets run here only, their recurrent state
+    rolled back per row to the accepted position after verification.
+  * ``cache_kind="paged"`` — both models' KV lives in fixed-size pages of a
+    preallocated pool (``PagedKVCache``): streams may join after
+    ``start()`` (``add_streams``) and leave (``retire_stream``), and
+    admission is bounded by the page pool (``can_admit``).
+
+``draft_width`` J > 1 runs the multi-draft TOKEN-TREE round instead
+(``_spin_round_tree``): J drafts per stream packed into a
 prefix-deduplicated tree, scored in ONE ancestor-masked target pass, the
 longest accepted root-to-leaf path committed.  Randomness is an input: each
 round consumes one ``core.draws.RoundDraws`` (J=1) or ``TreeDraws``.
 
-Not ported yet, each raising ``NotImplementedError``: the contiguous cache
-layout (ROADMAP A2), compiled modes and ``warmup`` (A9), SSM/hybrid models
-(A13).
+Not ported yet, each raising ``NotImplementedError``: compiled modes and
+``warmup`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -49,11 +56,13 @@ from .kv_cache import (
     PagePoolExhausted,
     cache_bytes,
     host_to_device,
+    merge_snapshot_into_cache,
     needs_state_rollback,
     paged_pool_bytes_per_page,
+    select_snapshots,
 )
 
-CACHE_KINDS = ("paged",)
+CACHE_KINDS = ("contiguous", "paged")
 
 # what ``_host_fetch`` packs into 32-bit words: float32 by bit view, integers
 # by value (the int64 ones are token ids, counts and positions, below 2**31)
@@ -100,7 +109,12 @@ class SpecEngine:
     ``spin_round`` is one protocol round; ``draft_rows`` / ``verify_rows``
     / ``commit_rows`` are the same J=1 round in its three pieces.  Tensors
     live on ``device`` (the card unless the caller asks for the CPU);
-    attention and verification dispatch through ``kernels.ops``.
+    attention, the SSD scan and verification dispatch through
+    ``kernels.ops``.
+
+    ``cache_kind``: ``"contiguous"`` (default) fixes the batch at
+    ``start()``; ``"paged"`` serves churn from a pooled ``PagedKVCache``
+    (streams join after start, retire, recycle rows).
 
     ``tree_commit``: how the accepted branch of a tree round reaches the
     caches.  ``"scatter"`` (default) gathers the winning branch's K/V from
@@ -111,22 +125,20 @@ class SpecEngine:
 
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  max_len: int = 512, cache_dtype=torch.float32,
-                 cache_kind: str = "paged", page_size: int = 16,
+                 cache_kind: str = "contiguous", page_size: int = 16,
                  num_pages: int | None = None, tree_commit: str = "scatter",
                  compile_mode: str | None = None, device="cuda"):
         assert target_cfg.vocab_size == draft_cfg.vocab_size, \
             "SLM/LLM pair must share a vocabulary"
         if tree_commit not in ("scatter", "repair"):
             raise ValueError("tree_commit must be 'scatter' or 'repair'")
-        if cache_kind == "contiguous":
-            raise NotImplementedError(
-                "the contiguous cache layout is not ported yet (ROADMAP A2); "
-                "use cache_kind='paged'")
         if cache_kind not in CACHE_KINDS:
             raise ValueError(f"cache_kind must be one of {CACHE_KINDS}")
-        if needs_state_rollback(target_cfg) or needs_state_rollback(draft_cfg):
+        if cache_kind == "paged" and (needs_state_rollback(target_cfg)
+                                      or needs_state_rollback(draft_cfg)):
             raise NotImplementedError(
-                "SSM/hybrid models are not ported yet (ROADMAP A13)")
+                "paged caches cover attention KV only; SSM/hybrid recurrent "
+                "state is O(1) per stream and needs no paging (ROADMAP)")
         compile_mode = compile_mode or "eager"
         if compile_mode != "eager":
             raise NotImplementedError(
@@ -197,11 +209,29 @@ class SpecEngine:
 
     def start(self, prompts) -> StreamState:
         """Prefill both models on the prompts (B, M).  The last prompt token
-        becomes the pending token.  Sizes the pool when ``num_pages`` was not
-        given: 2x the pages the start batch needs at max_len."""
+        becomes the pending token.  Paged engines size the pool when
+        ``num_pages`` was not given: 2x the pages the start batch needs at
+        max_len."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, M = prompts.shape
         self._free_rows, self._retired = [], set()
+        if self.cache_kind == "contiguous":
+            self.t_cache = self.target.init_cache(B, self.max_len,
+                                                  self.cache_dtype)
+            self.d_cache = self.draft.init_cache(B, self.max_len,
+                                                 self.cache_dtype)
+            _, self.t_cache, _ = self.target.prefill(
+                self.t_params, prompts[:, :-1], self.t_cache)
+            _, self.d_cache, _ = self.draft.prefill(
+                self.d_params, prompts[:, :-1], self.d_cache)
+            pnp = prompts.cpu().numpy()
+            return StreamState(
+                pending=prompts[:, -1].contiguous(),
+                target_pos=torch.full((B,), M - 1, dtype=torch.int32,
+                                      device=self.device),
+                draft_pos=torch.full((B,), M - 1, dtype=torch.int32,
+                                     device=self.device),
+                committed=[list(pnp[b]) for b in range(B)])
         if self.num_pages is None:
             self.num_pages = 2 * B * self.pages_per_stream
         self.t_cache = self.target.init_paged_cache(
@@ -228,12 +258,17 @@ class SpecEngine:
 
     def can_admit(self, length: int) -> bool:
         """Whether BOTH page pools can map a new stream of ``length`` tokens
-        right now (a pure query)."""
+        right now (a pure query); never on a contiguous engine."""
+        if self.cache_kind != "paged":
+            return False
         return (self.t_pages.can_allocate(length)
                 and self.d_pages.can_allocate(length))
 
     def pool_stats(self) -> dict:
         """Byte-level accounting for placement / admission decisions."""
+        if self.cache_kind != "paged":
+            return {"cache_bytes": cache_bytes(self.t_cache)
+                    + cache_bytes(self.d_cache)}
         return {
             "cache_bytes": cache_bytes(self.t_cache) + cache_bytes(self.d_cache),
             "free_bytes": self.t_pages.free_bytes() + self.d_pages.free_bytes(),
@@ -258,6 +293,10 @@ class SpecEngine:
         memory — call ``can_admit`` first).  The prefill runs at the
         power-of-two ``prompt_bucket`` shape; the padding's pages return to
         the pool right after.  Returns ``(new_state, rows)``."""
+        if self.cache_kind != "paged":
+            raise RuntimeError(
+                "contiguous caches are fixed at start(); construct the "
+                "engine with cache_kind='paged' to serve churn")
         prompts = torch.as_tensor(prompts, device=self.device)
         n, M = prompts.shape
         Mb = self.prompt_bucket(M)
@@ -329,6 +368,8 @@ class SpecEngine:
         """Return every page of ``row`` to the pool and recycle the batch
         slot.  The row keeps riding batched forwards frozen (writes through
         its emptied page table are dropped) until a new stream reuses it."""
+        if self.cache_kind != "paged":
+            raise RuntimeError("contiguous engines cannot retire streams")
         if row in self._retired:
             return
         self.t_pages.free_stream(row)
@@ -336,6 +377,33 @@ class SpecEngine:
         self._retired.add(row)
         self._free_rows.append(row)
         self._free_rows.sort()
+
+    def _grow_pages(self, state: StreamState, frz: np.ndarray, t_len: int,
+                    d_len: int) -> None:
+        """Extend every live row's page mappings to cover the round's window
+        (``t_len`` target and ``d_len`` draft positions past the committed
+        prefix), clamped at the stream ceiling (window writes past max_len
+        drop) and atomic: a pool-dry failure rolls every grown row back and
+        re-raises ``PagePoolExhausted``.  Positions come from the host-side
+        committed lists (target_pos == draft_pos == len(committed) - 1), so
+        growing the mapping costs no device read."""
+        cap = self.pages_per_stream * self.page_size
+        grown: list[tuple[int, int, int]] = []
+        with _span("engine.page_alloc", {"B": len(frz), "W": t_len}):
+            try:
+                for b in range(len(frz)):
+                    if frz[b]:
+                        continue
+                    pos_b = len(state.committed[b]) - 1
+                    grown.append((b, self.t_pages.length(b),
+                                  self.d_pages.length(b)))
+                    self.t_pages.extend(b, min(pos_b + t_len, cap))
+                    self.d_pages.extend(b, min(pos_b + d_len, cap))
+            except PagePoolExhausted:
+                for b, t_old, d_old in grown:
+                    self.t_pages.truncate(b, t_old)
+                    self.d_pages.truncate(b, d_old)
+                raise
 
     def warmup(self, state: StreamState, buckets, vhat: int = 64):
         raise NotImplementedError(
@@ -353,11 +421,15 @@ class SpecEngine:
         ``RoundTicket``.
 
         ``draft_gumbel`` (L, B, vhat) is the Gumbel noise of the L draft
-        steps, L = max(lengths).  Retired rows are frozen.  Page mappings of
-        live rows are extended to cover the L+1 verification window up
-        front, atomically: a pool-dry failure rolls every grown row back and
-        re-raises ``PagePoolExhausted``.  Nothing here waits on the
-        device."""
+        steps, L = max(lengths).  Retired rows are frozen.  On a paged
+        engine, page mappings of live rows are extended to cover the L+1
+        verification window up front, atomically: a pool-dry failure rolls
+        every grown row back and re-raises ``PagePoolExhausted``.  Nothing
+        here waits on the device."""
+        if needs_state_rollback(self.draft_cfg):
+            raise NotImplementedError(
+                "SSM draft models need snapshot drafting; assigned pairs use "
+                "attention SLMs (DESIGN.md §Arch-applicability)")
         B = int(state.pending.shape[0])
         lengths = np.asarray(lengths, dtype=np.int64)
         frz = (np.zeros(B, dtype=bool) if freeze is None
@@ -365,34 +437,14 @@ class SpecEngine:
         if self._retired:
             frz[list(self._retired)] = True
         L = int(lengths.max())
-
-        # growth is clamped at the stream ceiling (window writes past
-        # max_len drop) and atomic.  Positions come from the host-side
-        # committed lists (target_pos == draft_pos == len(committed) - 1),
-        # so growing the mapping costs no device read.
-        cap = self.pages_per_stream * self.page_size
-        grown: list[tuple[int, int, int]] = []
-        with _span("engine.page_alloc", {"B": B, "L": L}):
-            try:
-                for b in range(B):
-                    if frz[b]:
-                        continue
-                    pos_b = len(state.committed[b]) - 1
-                    grown.append((b, self.t_pages.length(b),
-                                  self.d_pages.length(b)))
-                    self.t_pages.extend(b, min(pos_b + L + 1, cap))
-                    self.d_pages.extend(b, min(pos_b + L + 1, cap))
-            except PagePoolExhausted:
-                for b, t_len, d_len in grown:
-                    self.t_pages.truncate(b, t_len)
-                    self.d_pages.truncate(b, d_len)
-                raise
-        d_pt = self.d_pages.device_table(range(B))
+        d_cache = self.d_cache
+        if self.cache_kind == "paged":
+            self._grow_pages(state, frz, L + 1, L + 1)
+            d_cache = dict(d_cache, pages=self.d_pages.device_table(range(B)))
 
         # --- step 2: distributed drafting (SLM) ---
         with _span("engine.draft", {"B": B, "L": L}) as sp:
-            draft_res = generate_drafts(self.draft, self.d_params,
-                                        dict(self.d_cache, pages=d_pt),
+            draft_res = generate_drafts(self.draft, self.d_params, d_cache,
                                         state.pending, state.draft_pos, L,
                                         draft_gumbel, vhat=vhat)
             self.d_cache = strip_view(draft_res.cache)
@@ -403,21 +455,30 @@ class SpecEngine:
                     u_accept: torch.Tensor, u_resid: torch.Tensor,
                     bonus_gumbel: torch.Tensor) -> RoundTicket:
         """Dispatch the batched target pass + exact accept/reject for a
-        drafted ticket, with the round's uniforms and bonus noise.  Nothing
+        drafted ticket, with the round's uniforms and bonus noise.  An
+        SSM/hybrid target keeps its state after every window step and each
+        row is rolled back to the step of its accepted prefix.  Nothing
         here waits on the device: ``commit_rows`` is the one sync point."""
         B = len(ticket.freeze)
         draft_res = ticket.draft
-        t_pt = self.t_pages.device_table(range(B))
         draft_len = host_to_device(np.asarray(ticket.lengths, np.int32),
                                    self.device)
-        t_cache = dict(self.t_cache, pages=t_pt)
+        t_cache = self.t_cache
+        if self.cache_kind == "paged":
+            t_cache = dict(t_cache, pages=self.t_pages.device_table(range(B)))
 
         # --- step 4: batched verification (LLM) ---
         window = torch.cat([state.pending[:, None].to(draft_res.tokens.dtype),
                             draft_res.tokens], dim=1)          # (B, L+1)
         with _span("engine.target_pass", {"B": B, "W": ticket.L + 1}) as sp:
-            logits, t_cache = self.target.forward_window(
-                self.t_params, window, t_cache, state.target_pos)
+            if needs_state_rollback(self.target_cfg):
+                logits, t_cache, snaps = self.target.forward_window(
+                    self.t_params, window, t_cache, state.target_pos,
+                    return_snapshots=True)
+            else:
+                logits, t_cache = self.target.forward_window(
+                    self.t_params, window, t_cache, state.target_pos)
+                snaps = None
             sp.attach(logits)
 
         with _span("engine.verify_tokens", {"B": B, "L": ticket.L}) as sp:
@@ -425,6 +486,13 @@ class SpecEngine:
                                 draft_res.q_idx, draft_res.q_val, u_accept,
                                 u_resid, bonus_gumbel, draft_len=draft_len)
             sp.attach(res.accept_counts)
+
+        # row b processed [pending, d_1 .. d_n]: snapshot n (the state after
+        # window[:, :n+1]) is the one its accepted prefix keeps
+        if snaps is not None:
+            sel = select_snapshots(snaps, res.accept_counts,
+                                   self.target.CACHE_BATCH_AXES)
+            t_cache = merge_snapshot_into_cache(t_cache, sel)
         self.t_cache = strip_view(t_cache)
         ticket.res = res
         return ticket
@@ -435,7 +503,7 @@ class SpecEngine:
         ``commit_step`` updates pending / target_pos / draft_pos on device
         for every row not frozen; the one blocking fetch is the packed
         ``(B, L+2)`` emission that extends the host-side committed lists
-        and drives the page-pool truncation.  Returns ``(new_state,
+        and (paged) drives the page-pool truncation.  Returns ``(new_state,
         accepted)``: accepted counts incl. the bonus token, 0 for frozen
         rows."""
         B = len(ticket.freeze)
@@ -455,10 +523,11 @@ class SpecEngine:
                     if adv == 0:
                         continue
                     state.committed[b].extend(pack[b, 1:1 + adv].tolist())
-                    # speculative rejection hands pages straight back
-                    new_len = len(state.committed[b]) - 1
-                    self.t_pages.truncate(b, new_len)
-                    self.d_pages.truncate(b, new_len)
+                    if self.cache_kind == "paged":
+                        # speculative rejection hands pages straight back
+                        new_len = len(state.committed[b]) - 1
+                        self.t_pages.truncate(b, new_len)
+                        self.d_pages.truncate(b, new_len)
         self.last_accepted = accepted
         new_state = StreamState(pending=pend, target_pos=tpos,
                                 draft_pos=dpos, committed=state.committed)
@@ -482,9 +551,10 @@ class SpecEngine:
         ``freeze`` marks streams that must NOT advance this round.  Frozen
         rows still ride through the batched forwards but commit nothing;
         their stale window writes land in their own slack slots (or drop,
-        for retired rows).  Live rows extend their page mappings to cover
-        the window up front and hand back every page past the accepted
-        prefix afterwards."""
+        for retired rows).  SSM/hybrid targets would need a pre-window
+        state restore and refuse frozen rows.  On a paged engine, live rows
+        extend their page mappings to cover the window up front and hand
+        back every page past the accepted prefix afterwards."""
         if tree is None:
             tree = draft_width > 1
         if tree:
@@ -492,8 +562,17 @@ class SpecEngine:
                 draws = TreeDraws.from_round(draws)
             return self._spin_round_tree(state, lengths, draws, vhat=vhat,
                                          freeze=freeze, J=int(draft_width))
+        B = int(state.pending.shape[0])
+        frz = (np.zeros(B, dtype=bool) if freeze is None
+               else np.asarray(freeze, dtype=bool).copy())
+        if self._retired:
+            frz[list(self._retired)] = True
+        if frz.any() and needs_state_rollback(self.target_cfg):
+            raise NotImplementedError(
+                "freezing streams of an SSM/hybrid target needs a pre-window "
+                "state snapshot (see ROADMAP open items)")
         ticket = self.draft_rows(state, lengths, draws.draft_gumbel,
-                                 vhat=vhat, freeze=freeze)
+                                 vhat=vhat, freeze=frz)
         ticket = self.verify_rows(state, ticket, draws.u_accept,
                                   draws.u_resid, draws.bonus_gumbel)
         new_state, _ = self.commit_rows(state, ticket)
@@ -523,12 +602,24 @@ class SpecEngine:
         and the winning run's window snapshot (draft) into the committed
         positions — ``tree_commit="repair"`` instead re-forwards [pending,
         accepted path] through both models (committed tokens are identical
-        either way: they are decided before the cache fix-up).  Every page
-        past the accepted prefix (all dead branches) goes back to the pool.
+        either way: they are decided before the cache fix-up).  On a paged
+        engine every page past the accepted prefix (all dead branches) goes
+        back to the pool.
         At J = 1 the tree is a chain, the window IS the sequential window,
         and no fix-up runs.  Host syncs per round: 2 (scatter, or J = 1),
         3 (repair, J > 1).
         """
+        for role, cfg in (("target", self.target_cfg),
+                          ("draft", self.draft_cfg)):
+            # dense decoders only: the ancestor-masked window needs
+            # pointer-rollback attention caches and the forward_window
+            # (window_mask=, window_depth=) signature
+            if cfg.family != "dense":
+                raise NotImplementedError(
+                    f"tree verification needs an attention decoder "
+                    f"({role} family {cfg.family!r}): divergent branches "
+                    f"commit by pointer rollback and one ancestor-masked "
+                    f"window pass (see ROADMAP open items)")
         if draws.J != J:
             raise ValueError(f"draws of width {draws.J} for a J={J} round")
         B = int(state.pending.shape[0])
@@ -543,31 +634,16 @@ class SpecEngine:
             raise ValueError(f"tree accept uniforms {tuple(draws.u_accept.shape)}"
                              f" != (B={B}, W={W})")
 
-        # the TARGET maps the whole W+1 tree window up front; the draft side
-        # only ever holds one run (L+1) — repair fits under both.  Positions
-        # come from the host-side committed lists (target_pos == draft_pos
-        # == len(committed) - 1), zero device reads.
-        cap = self.pages_per_stream * self.page_size
-        grown: list[tuple[int, int, int]] = []
-        with _span("engine.page_alloc", {"B": B, "W": W}):
-            try:
-                for b in range(B):
-                    if frz_np[b]:
-                        continue
-                    pos_b = len(state.committed[b]) - 1
-                    grown.append((b, self.t_pages.length(b),
-                                  self.d_pages.length(b)))
-                    self.t_pages.extend(b, min(pos_b + W + 1, cap))
-                    self.d_pages.extend(b, min(pos_b + L + 1, cap))
-            except PagePoolExhausted:
-                for b, t_len, d_len in grown:
-                    self.t_pages.truncate(b, t_len)
-                    self.d_pages.truncate(b, d_len)
-                raise
-        t_pt = self.t_pages.device_table(range(B))
-        d_pt = self.d_pages.device_table(range(B))
-        t_cache = dict(self.t_cache, pages=t_pt)
-        d_cache = dict(self.d_cache, pages=d_pt)
+        paged = self.cache_kind == "paged"
+        t_cache, d_cache, t_pt, d_pt = self.t_cache, self.d_cache, None, None
+        if paged:
+            # the TARGET maps the whole W+1 tree window up front; the draft
+            # side only ever holds one run (L+1) — repair fits under both
+            self._grow_pages(state, frz_np, W + 1, L + 1)
+            t_pt = self.t_pages.device_table(range(B))
+            d_pt = self.d_pages.device_table(range(B))
+            t_cache = dict(t_cache, pages=t_pt)
+            d_cache = dict(d_cache, pages=d_pt)
 
         # --- step 2: J drafting runs per stream (SLM) ---
         scatter = self.tree_commit == "scatter" and J > 1
@@ -675,13 +751,14 @@ class SpecEngine:
             if not frz_np[b]:
                 state.committed[b].extend(out_np[b, :n_np[b] + 1].tolist())
 
-        # every page past the accepted prefix — all dead branches of the
-        # tree — returns to the pool here
-        with _span("engine.page_free", {"B": B}):
-            for b in range(B):
-                if not frz_np[b]:
-                    self.t_pages.truncate(b, int(ntp[b]))
-                    self.d_pages.truncate(b, int(ndp[b]))
+        if paged:
+            # every page past the accepted prefix — all dead branches of the
+            # tree — returns to the pool here
+            with _span("engine.page_free", {"B": B}):
+                for b in range(B):
+                    if not frz_np[b]:
+                        self.t_pages.truncate(b, int(ntp[b]))
+                        self.d_pages.truncate(b, int(ndp[b]))
 
         new_state = StreamState(pending=new_pending, target_pos=new_target_pos,
                                 draft_pos=new_draft_pos,

@@ -89,6 +89,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     "repro_torch.serving.kv_cache:PagedKVCache",
     "repro_torch.models.model_zoo:build_model",
     "repro_torch.models.transformer:DecoderLM",
+    "repro_torch.models.ssm:MambaLM",
+    "repro_torch.models.hybrid:HybridLM",
     "repro_torch.bridge:params_from_jax",
     "repro_torch.core.draws:RoundDraws.sample",
     "repro_torch.core.draws:TreeDraws.sample",

@@ -16,7 +16,13 @@ within rounding of a CDF step (the two sum in different orders), which
 ``cases.residual_boundary_ok`` checks in float64.  Tree attention is held
 like paged attention; ``gather_softmax_prob`` within 2e-5 relative
 (``cases.GATHER_TOL``); ``residual_sample`` tokens may differ only at a CDF
-step (``cases.cdf_step_ok``).  This file imports no jax.
+step (``cases.cdf_step_ok``).  Contiguous tree attention is held like
+paged tree attention, and a chain mask must equal paged tree attention over
+the same keys laid out in pages, bit for bit.  The SSD scan's y is held
+against the plain version in float32 within 1e-4 (float32, the scan's band
+in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
+``cases.SSD_TOL``), its float32 final state within 1e-4.  This file imports
+no jax.
 """
 
 import numpy as np
@@ -30,6 +36,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_tree_attention as pta
 from repro_torch.kernels import residual_sample as rs
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import tree_attention as ta
 from repro_torch.kernels.cases import paged_case, verify_case
 
 pytestmark = pytest.mark.gpu
@@ -116,12 +124,21 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
                                               torch.float32, cuda))
     ops.gather_softmax_prob(*cases.softmax_case(3, 300, cuda))
     ops.residual_sample(*cases.residual_case(3, 300, cuda))
+    ops.tree_attention(*cases.contiguous_tree_case(2, 2, 2, 4, 2, 16, 32, 20,
+                                                   torch.float32, cuda))
+    ops.ssd_scan(*cases.ssd_case(1, 16, 2, 16, 1, 16, torch.float32, cuda)[:5],
+                 chunk=8)
+    x, dt, A, B, C, _ = cases.ssd_case(1, 1, 2, 16, 1, 16, torch.float32, cuda)
+    ops.ssd_decode(x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],      # no counter
+                   torch.zeros((1, 2, 16, 16), device=cuda))
     assert ops.counts() == {
         "paged_attention": {"kernel": 1, "plain": 0},
         "fused_verify_sample": {"kernel": 1, "plain": 0},
         "paged_tree_attention": {"kernel": 1, "plain": 0},
         "gather_softmax_prob": {"kernel": 1, "plain": 0},
-        "residual_sample": {"kernel": 1, "plain": 0}}
+        "residual_sample": {"kernel": 1, "plain": 0},
+        "tree_attention": {"kernel": 1, "plain": 0},
+        "ssd_scan": {"kernel": 1, "plain": 0}}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -283,6 +300,178 @@ def test_tree_rounds_on_the_card_equal_the_cpu(cuda, commit):
                  "gather_softmax_prob", "residual_sample"):
         assert card[3][name]["kernel"] > 0 and card[3][name]["plain"] == 0
         assert cpu[3][name]["plain"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the contiguous layout's kernels
+# ---------------------------------------------------------------------------
+
+CONTIGUOUS_TREE_SHAPES = [
+    # (B, J, L, H, KV, D, S, ctx): T = J*L + 1
+    (3, 2, 3, 4, 2, 16, 64, 40),        # smoke, GQA
+    (3, 3, 4, 8, 2, 64, 96, 70),        # MQA-ish, a ragged key tile
+    (8, 2, 6, 32, 32, 128, 1024, 512),  # llama2-7b tree window (T = 13)
+    (8, 6, 8, 32, 32, 128, 1024, 512),  # the scheme's ceiling (T = 49)
+    (2, 7, 9, 4, 1, 32, 128, 100),      # T = 64, the kernel's limit
+]
+
+
+@pytest.mark.parametrize("shape", CONTIGUOUS_TREE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", [False, True])
+def test_tree_attention_kernel_matches_plain(cuda, shape, dtype, chain):
+    """Tree masks from ``build_token_tree``; a chain mask must also equal
+    the paged kernel over the same keys laid out in 16-key pages."""
+    args = cases.contiguous_tree_case(*shape, dtype=dtype, device=cuda,
+                                      chain=chain)
+    got = ta.tree_attention_cuda(*args)
+    want = cases.contiguous_tree_held(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    rtol, atol = cases.PAGED_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    if chain:
+        q, kc, vc, ln, mask = args
+        kp, vp, table = cases.as_pages(kc, vc)
+        assert torch.equal(got, pta.paged_tree_attention_cuda(
+            q, kp, vp, table, ln, mask))
+
+
+def test_tree_attention_sees_no_key_past_the_cache(cuda):
+    """A window written at an offset past S - T lands at S - T (the cache
+    write clamps), and the kernel reads no key at or past S: it agrees with
+    the plain version on rows whose lengths reach the end."""
+    q, kc, vc, ln, mask = cases.contiguous_tree_case(
+        3, 2, 3, 4, 2, 16, 64, 40, torch.float32, cuda)
+    ln = torch.tensor([60, 64, 10], dtype=torch.int32, device=cuda)
+    got = ta.tree_attention_cuda(q, kc, vc, ln, mask)
+    want = cases.contiguous_tree_held(q, kc, vc, ln, mask)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_tree_attention_refuses_a_65_token_window(cuda):
+    args = cases.contiguous_tree_case(1, 8, 8, 4, 2, 16, 128, 40,
+                                      torch.float32, cuda)
+    with pytest.raises(ValueError, match="at most 64"):
+        ta.tree_attention_cuda(*args)
+    q, kc, vc, ln, mask = cases.contiguous_tree_case(1, 2, 2, 4, 2, 16, 64, 40,
+                                                     torch.float32, cuda)
+    with pytest.raises(ValueError, match="bool"):
+        ta.tree_attention_cuda(q, kc, vc, ln, mask.to(torch.uint8))
+    with pytest.raises(ValueError, match="int32"):
+        ta.tree_attention_cuda(q, kc, vc, ln.long(), mask)
+
+
+SSD_SHAPES = [
+    # (b, s, h, p, g, n, chunk)
+    (2, 32, 8, 16, 1, 16, 8),          # smoke widths (p = n = 16, chunk 8)
+    (8, 128, 80, 64, 1, 64, 64),       # zamba2-2.7b prefill
+    (8, 128, 24, 64, 1, 128, 64),      # mamba2-130m heads, big state
+    (2, 64, 4, 32, 2, 16, 16),         # grouped B/C
+]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, init):
+    b, s, h, p, g, n, chunk = shape
+    x, dt, A, B, C, st = cases.ssd_case(b, s, h, p, g, n, dtype, cuda,
+                                        init=init)
+    y, fs = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    y_want, fs_want = cases.ssd_scan_held(x, dt, A, B, C, chunk, st)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and fs.dtype == torch.float32
+    rtol, atol = cases.SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_want, rtol=rtol, atol=atol)
+    rtol, atol = cases.SSD_STATE_TOL
+    torch.testing.assert_close(fs, fs_want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_ops_ssd_scan_pads_a_ragged_sequence(cuda, init):
+    """A sequence that is not a chunk multiple is padded with dt = 0 on the
+    card as on the CPU: y and the final state agree."""
+    args = cases.ssd_case(2, 27, 4, 16, 1, 16, torch.float32, cuda, init=init)
+    ops.reset_counts()
+    y, fs = ops.ssd_scan(*args[:5], chunk=8, initial_state=args[5])
+    cpu = [None if t is None else t.cpu() for t in args]
+    y_cpu, fs_cpu = ops.ssd_scan(*cpu[:5], chunk=8, initial_state=cpu[5])
+    assert y.shape == (2, 27, 4, 16)
+    assert ops.counts()["ssd_scan"] == {"kernel": 1, "plain": 1}
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fs.cpu(), fs_cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C, _ = cases.ssd_case(1, 16, 2, 16, 1, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=5)
+    with pytest.raises(ValueError, match="float32"):
+        ssd.ssd_scan_cuda(x, dt.double(), A, B, C, chunk=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = cases.ssd_case(1, 128, 1, 128, 1, 256, torch.float32, cuda)
+        ssd.ssd_scan_cuda(*big[:5], chunk=128)
+
+
+CONTIGUOUS_ROUNDS = {
+    # target arch: [(J, tree, lengths), ...]
+    "qwen2.5-3b": [(1, False, [4, 2, 3]), (1, False, [1, 4, 4]),
+                   (1, False, [3, 3, 2]), (1, True, [4, 2, 3]),
+                   (2, True, [3, 4, 2]), (3, True, [2, 3, 4])],
+    "mamba2-130m": [(1, False, [4, 2, 3]), (1, False, [1, 4, 4]),
+                    (1, False, [3, 3, 2])],
+    "zamba2-2.7b": [(1, False, [4, 2, 3]), (1, False, [1, 4, 4]),
+                    (1, False, [3, 3, 2])],
+}
+
+
+@pytest.mark.parametrize("arch", sorted(CONTIGUOUS_ROUNDS))
+def test_contiguous_rounds_on_the_card_equal_the_cpu(cuda, arch):
+    """The contiguous smoke engines (dense J=1 and tree rounds, mamba2 and
+    zamba2 targets) commit the same tokens on the card (kernels only) as on
+    the CPU (plain versions), with the reference's host syncs per round."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import RoundDraws, TreeDraws
+    from repro_torch.serving import SpecEngine
+
+    tcfg = get_config(arch).smoke()
+    dcfg = get_config("qwen2.5-3b").smoke().replace(
+        num_layers=1, d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+        d_ff=64, name="draft-smoke")
+    prompts = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 257, (3, 10)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = SpecEngine(tcfg, dcfg, max_len=96, device=dev)
+        eng.init_params(0)
+        if dev != "cpu":
+            eng.t_params, eng.d_params = params
+        else:
+            params = (_to(eng.t_params, cuda), _to(eng.d_params, cuda))
+        ops.reset_counts()
+        st = eng.start(prompts.to(dev))      # the SSD scan runs in prefill
+        syncs = []
+        for r, (J, tree, lengths) in enumerate(CONTIGUOUS_ROUNDS[arch]):
+            L = max(lengths)
+            draws = (RoundDraws.sample(r, 3, L, 64, 257, device="cpu") if J == 1
+                     else TreeDraws.sample(r, 3, J, L, 64, 257, device="cpu"))
+            h0 = eng.host_syncs
+            st, _, _ = eng.spin_round(st, np.asarray(lengths), draws.to(dev),
+                                      draft_width=J, tree=tree)
+            syncs.append(eng.host_syncs - h0)
+        out[str(dev)] = ([list(map(int, c)) for c in st.committed], syncs,
+                         eng.pool_stats(), ops.counts())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card[:3] == cpu[:3]
+    assert card[1] == [2 if tree else 1 for _, tree, _ in CONTIGUOUS_ROUNDS[arch]]
+    used = {"qwen2.5-3b": ("tree_attention", "fused_verify_sample",
+                           "gather_softmax_prob", "residual_sample"),
+            "mamba2-130m": ("ssd_scan", "fused_verify_sample"),
+            "zamba2-2.7b": ("ssd_scan", "fused_verify_sample")}[arch]
+    for name in used:
+        assert card[3][name]["kernel"] > 0 and cpu[3][name]["plain"] > 0
+    assert all(c["plain"] == 0 for c in card[3].values())
 
 
 def _to(tree, device):

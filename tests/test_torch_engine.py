@@ -436,8 +436,6 @@ def test_unported_engine_paths_name_their_roadmap_item(ref):
     from repro_torch.serving.backends import ContinuousBackend
 
     tcfg, dcfg = _cfgs(tcfgs)
-    with pytest.raises(NotImplementedError, match="A2"):
-        SpecEngine(tcfg, dcfg, cache_kind="contiguous", device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         SpecEngine(tcfg, dcfg, compile_mode="jit", device="cpu")
     eng = _port_engine(ref)

@@ -24,6 +24,8 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import paged_tree_attention as tpta
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import residual_sample as trs
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels import tree_attention as tta
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -348,12 +350,20 @@ def test_ops_count_plain_calls_on_cpu():
     p = torch.softmax(logits, -1)
     tops.residual_sample(p, p.roll(1, -1), torch.rand(3))
     tops.residual_sample(p, p.roll(2, -1), torch.rand(3))
+    tops.tree_attention(*cases.contiguous_tree_case(B, 1, 1, H, KV, D, 16, 8,
+                                                    torch.float32, "cpu"))
+    x, dt, A, Bm, C, st = cases.ssd_case(1, 12, 2, 16, 1, 16, torch.float32,
+                                         "cpu", init=True)
+    tops.ssd_scan(x, dt, A, Bm, C, chunk=8, initial_state=st)
+    tops.ssd_decode(x[:, 0], dt[:, 0], A, Bm[:, 0], C[:, 0], st)  # no counter
     assert tops.counts() == {
         "paged_attention": {"kernel": 0, "plain": 1},
         "fused_verify_sample": {"kernel": 0, "plain": 1},
         "paged_tree_attention": {"kernel": 0, "plain": 1},
         "gather_softmax_prob": {"kernel": 0, "plain": 1},
-        "residual_sample": {"kernel": 0, "plain": 2}}
+        "residual_sample": {"kernel": 0, "plain": 2},
+        "tree_attention": {"kernel": 0, "plain": 1},
+        "ssd_scan": {"kernel": 0, "plain": 1}}
     tops.reset_counts()
     assert all(c == {"kernel": 0, "plain": 0} for c in tops.counts().values())
 
@@ -379,8 +389,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tgsp.gather_softmax_prob_cuda(logits, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         trs.residual_sample_cuda(logits, logits, torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tta.tree_attention_cuda(*cases.contiguous_tree_case(
+            1, 1, 1, 2, 1, 16, 8, 4, torch.float32, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan_cuda(*cases.ssd_case(1, 8, 2, 16, 1, 16, torch.float32,
+                                           "cpu")[:5], chunk=8)
     assert tpa.launches == tfvs.launches == tpta.launches == 0
-    assert tgsp.launches == trs.launches == 0
+    assert tgsp.launches == trs.launches == tta.launches == tssd.launches == 0
 
 
 def test_ops_reject_other_devices():

@@ -313,12 +313,7 @@ def test_tree_forward_window_matches_jax(J):
 
 
 def test_unported_paths_name_their_roadmap_item():
-    cfg = _cfgs()["target"]
-    tm = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A2"):
-        tm.init_cache(1, 32)
-    for arch, item in (("mamba2-130m", "A13"), ("zamba2-2.7b", "A13"),
-                       ("whisper-large-v3", "A14"), ("paligemma-3b", "A14"),
+    for arch, item in (("whisper-large-v3", "A14"), ("paligemma-3b", "A14"),
                        ("moonshot-v1-16b-a3b", "A12")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(get_config(arch).smoke(), device="cpu")
