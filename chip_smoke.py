@@ -8,7 +8,7 @@ result line, without them.  Imports nothing of jax and nothing of the JAX
 package.  Phases (none catches a failure):
 
   1. the card: nvidia-smi's name and power limit, torch's device name
-  2. build all seven kernels from ``src/repro_torch/csrc`` (one nvcc each, in
+  2. build all nine kernels from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel); print build seconds and ptxas register/smem/spill lines
   3. each kernel against its plain version on the card at the shapes the
      serving paths give it: max error, exact-match counts, kernel / plain /
@@ -22,14 +22,20 @@ package.  Phases (none catches a failure):
      Contiguous tree attention (B6) is held like paged tree attention, and
      its chain mask must equal paged tree attention over the same keys laid
      out in pages, bit for bit; the SSD scan (B10, bfloat16 and float32,
-     with and without an initial state) within ``cases.SSD_TOL``.
+     with and without an initial state) within ``cases.SSD_TOL``.  Decode
+     attention (B7: the TinyLlama draft step, Zamba2's shared-attention step
+     at head dim 80, Llama-2-7B's plain decode step, and lengths 1, S and
+     past S) and flash attention (B8: the Llama-2-7B, TinyLlama and Zamba2
+     prefills, Sq < Skv, non-causal) are held like paged attention.
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
      weights and draws, three sequential rounds then three tree rounds
      (J=1 through the tree machinery, J=2, J=3) on the paged layout, the
      same six rounds on the contiguous layout, and three J=1 rounds each
-     with mamba2 and zamba2 smoke targets (contiguous): identical committed
-     tokens
+     with mamba2 and zamba2 smoke targets (contiguous; each of these
+     launches B7 and B8): identical committed tokens; and the plain
+     ``ServingEngine`` on the deepseek-7b smoke config, greedy and sampled
+     with the same noise: identical tokens
   5. the J=1 path at full width: Llama-2-7B verifying TinyLlama-1.1B drafts
      in bfloat16, paged (page_size 16, max_len 1024), under a
      ``MultiSpinCell`` (scheme hete) with 8 requests of 128-token prompts
@@ -47,21 +53,30 @@ package.  Phases (none catches a failure):
      then 3 profiled rounds
   7. the contiguous tree path at full width: the same pair, requests and
      ``multidraft`` cell on a contiguous engine (max_len 1024, the JAX
-     engine's default layout); per round ``draft_width >= 2``, the kernels
-     tree_attention, gather_softmax_prob and residual_sample, no plain
-     call, exactly two host syncs; then 3 profiled rounds
+     engine's default layout); flash_attention once per layer of both
+     models (54) in ``start()``; per round ``draft_width >= 2``, the kernels
+     tree_attention, gather_softmax_prob, residual_sample and
+     decode_attention (the draft steps), no plain call, exactly two host
+     syncs; then 3 profiled rounds
   8. the hybrid path at full width: Zamba2-2.7B verifying TinyLlama-1.1B
      drafts in bfloat16, contiguous, scheme hete, 8 persistent requests of
      128-token prompts (an SSM target refuses frozen rows); ssd_scan
-     launches once per Mamba-2 layer (54) in ``start()``'s prefill; per
-     round fused_verify_sample, no plain call, exactly one host sync; then
-     3 profiled rounds
-  9. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
+     launches once per Mamba-2 layer (54) and flash_attention once per
+     shared-block invocation and draft layer (9 + 22) in ``start()``'s
+     prefill; per round fused_verify_sample and decode_attention, no plain
+     call, exactly one host sync; then 3 profiled rounds
+  9. the plain decode path at full width: ``ServingEngine`` with Llama-2-7B
+     in bfloat16 (max_len 1024), 8 prompts of 128 tokens, 64 sampled decode
+     steps; flash_attention 32 launches in ``start()``, decode_attention 32
+     a step, one host fetch a step, every plain counter 0; ms per step,
+     tokens/s and peak memory; then 3 profiled steps
+ 10. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
      line ``{"ok": true, "device": {...}}``
 
 Each path's counters are set to 0 just before its engine's ``start()`` and
-read after its last checked round; ``launches`` in the kernels line sums
-them over the paths, prefills included.
+read after its last checked round or step; ``launches`` in the kernels line
+sums them over the paths, prefills included (``launches_per_round`` counts
+per step on the plain decode path).
 """
 
 from __future__ import annotations
@@ -119,6 +134,24 @@ SSD_CASES = [
     ("mamba2-130m heads", (8, 128, 24, 64, 1, 128, 64), False),
 ]
 SSD_HEADLINE = ("zamba2-2.7b prefill", "bfloat16")
+DECODE_CASES = [
+    # name, (B, H, KV, D, S, lengths): a (lo, hi) range or the rows' list
+    ("tinyllama-1.1b draft step", (8, 32, 4, 64, 1024, (128, 520))),
+    ("zamba2-2.7b shared-attention step", (8, 32, 32, 80, 1024, (128, 160))),
+    ("llama2-7b plain decode", (8, 32, 32, 128, 1024, (127, 190))),
+    ("lengths 1, S, past S", (4, 32, 4, 64, 1024, [1, 1024, 1100, 700])),
+]
+DECODE_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
+FLASH_CASES = [
+    # name, (B, Sq, Skv, H, KV, D, causal)
+    ("llama2-7b prefill", (8, 127, 127, 32, 32, 128, True)),
+    ("tinyllama-1.1b prefill", (8, 127, 127, 32, 4, 64, True)),
+    ("zamba2-2.7b shared-attention prefill", (8, 127, 127, 32, 32, 80, True)),
+    ("Sq < Skv", (2, 70, 200, 8, 2, 64, True)),
+    ("non-causal", (2, 100, 100, 8, 2, 80, False)),
+]
+FLASH_HEADLINE = ("llama2-7b prefill", "bfloat16")
+DECODE_STEPS = 64
 
 
 def log(*args):
@@ -461,6 +494,86 @@ def check_contiguous_kernels(torch, cases, pta, ta, ssd):
     return tree, scan
 
 
+def check_decode_kernels(torch, cases, da, fa):
+    """Phase 3, decode attention (B7) and flash attention (B8) against
+    their plain versions at the path shapes and the edge cases; returns
+    (decode, flash) records."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    decode, flash = [], []
+    for name, shape in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cases.decode_case(*shape, dtype=dtype, device="cuda")
+            got = da.decode_attention_cuda(*args).float()
+            want = cases.decode_attention_held(*args)
+            plain = da.decode_attention_plain(*args).float()
+            torch.cuda.synchronize()
+            n_bytes, n_ops = cases.decode_work(*args)
+            sq, sk, sv, kw = cases.decode_sdpa_inputs(*args)
+            rec = _attention_record(
+                torch, cases, name, dtype, dict(zip("B H KV D S".split(),
+                                                    shape[:5]),
+                                                lengths=args[3].tolist()),
+                got, want, plain, n_bytes, n_ops,
+                lambda: da.decode_attention_cuda(*args),
+                lambda: da.decode_attention_plain(*args),
+                lambda: sdpa(sq, sk, sv, **kw))
+            log(f"decode_attention {name:34s} {rec['dtype']:8s} "
+                + _attention_line(rec))
+            decode.append(rec)
+    for name, (B, Sq, Skv, H, KV, D, causal) in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = cases.flash_case(B, Sq, Skv, H, KV, D, dtype, "cuda")
+            got = fa.flash_attention_cuda(q, k, v, causal=causal).float()
+            want = cases.flash_attention_held(q, k, v, causal=causal)
+            plain = fa.flash_attention_plain(q, k, v, causal=causal).float()
+            torch.cuda.synchronize()
+            n_bytes, n_ops = cases.flash_work(q, k, v, causal=causal)
+            sq, sk, sv, kw = cases.flash_sdpa_inputs(q, k, v, causal=causal)
+            rec = _attention_record(
+                torch, cases, name, dtype,
+                dict(B=B, Sq=Sq, Skv=Skv, H=H, KV=KV, D=D, causal=causal),
+                got, want, plain, n_bytes, n_ops,
+                lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+                lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                lambda: sdpa(sq, sk, sv, **kw))
+            log(f"flash_attention  {name:34s} {rec['dtype']:8s} "
+                + _attention_line(rec))
+            flash.append(rec)
+    return decode, flash
+
+
+def _attention_record(torch, cases, name, dtype, shape, got, want, plain,
+                      n_bytes, n_ops, kernel_fn, plain_fn, library_fn):
+    """One case of an attention kernel held against its float32 plain
+    version within ``cases.PAGED_TOL``, with its times and bound; raises
+    when they disagree."""
+    err = float((got - want).abs().max())
+    rtol, atol = cases.PAGED_TOL[dtype]
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name} {dtype}: kernel disagrees with plain, "
+                             f"max|err| {err}")
+    bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
+    return {
+        "case": name, "dtype": str(dtype).replace("torch.", ""),
+        "shape": shape, "max_abs_err": err, "rtol": rtol, "atol": atol,
+        "max_abs_err_vs_plain_same_dtype": float((got - plain).abs().max()),
+        "ms": cases.time_ms(kernel_fn),
+        "plain_ms": cases.time_ms(plain_fn, iters=10),
+        "library_ms": cases.time_ms(library_fn),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": n_bytes, "ops": n_ops,
+    }
+
+
+def _attention_line(rec):
+    return (f"max|err| {rec['max_abs_err']:.3e} vs f32 plain (rtol "
+            f"{rec['rtol']}, atol {rec['atol']}), "
+            f"{rec['max_abs_err_vs_plain_same_dtype']:.3e} vs {rec['dtype']} "
+            f"plain  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+            f"  sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+
+
 def reference_check(torch, np):
     """Phase 4: the smoke-size engine on the card against the same engine on
     the CPU (plain versions), same weights and draws."""
@@ -559,6 +672,8 @@ def contiguous_reference_check(torch, np, dcfg, prompts):
             if dev == "cuda":
                 assert all(v["plain"] == 0 for v in ops.counts().values()), \
                     ops.counts()
+        for op in ("decode_attention", "flash_attention"):
+            assert launched["cuda"].get(op, 0) > 0, (arch, op, launched)
         same = committed["cpu"] == committed["cuda"]
         log(f"reference check (contiguous, {arch} smoke target, "
             f"{len(rounds)} rounds): card == CPU committed tokens: {same}; "
@@ -567,6 +682,46 @@ def contiguous_reference_check(torch, np, dcfg, prompts):
         if not same:
             raise AssertionError(f"{arch}: card {committed['cuda']} != CPU "
                                  f"{committed['cpu']}")
+
+
+def serving_engine_reference_check(torch, np):
+    """Phase 4, the plain engine: the smoke-size ``ServingEngine`` on the
+    card (B8 in start, B7 every step) against the same engine on the CPU,
+    same weights, greedy and sampled with the same Gumbel noise."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("deepseek-7b").smoke()
+    prompts = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 257, (3, 9)).astype(np.int32))
+    noise = -torch.empty((6, 3, cfg.vocab_size)).exponential_(
+        generator=torch.Generator().manual_seed(4)).log()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, max_len=48, device=dev)
+        eng.init_params(0)
+        if dev == "cuda":
+            eng.params = _to(torch, ref_params, "cuda")
+        else:
+            ref_params = eng.params
+        ops.reset_counts()
+        greedy = eng.generate(prompts.to(dev), 6, temperature=0)
+        sampled = eng.generate(prompts.to(dev), 6, noise.to(dev),
+                               temperature=0.8)
+        out[dev] = ([[int(t) for t in c] for c in greedy],
+                    [[int(t) for t in c] for c in sampled],
+                    {k: v for k, v in ops.counts().items()
+                     if v["kernel"] or v["plain"]})
+    same = out["cpu"][:2] == out["cuda"][:2]
+    log(f"reference check (plain ServingEngine, deepseek-7b smoke, greedy "
+        f"and sampled, 6 steps each): card == CPU committed tokens: {same}; "
+        f"card counts {out['cuda'][2]}")
+    if not same:
+        raise AssertionError(f"card {out['cuda'][:2]} != CPU {out['cpu'][:2]}")
+    for op in ("decode_attention", "flash_attention"):
+        c = out["cuda"][2].get(op, {"kernel": 0, "plain": 0})
+        assert c["kernel"] > 0 and c["plain"] == 0, out["cuda"][2]
 
 
 def _to(torch, tree, device):
@@ -676,7 +831,7 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
         assert counts[op]["kernel"] > 0, counts
     assert all(c["plain"] == 0 for c in counts.values()), counts
     assert len(rounds) == n_rounds, f"{label}: drained after {len(rounds)} rounds"
-    profile_rounds(torch, cell, PROFILE_ROUNDS, label)
+    profile_rounds(torch, cell.step, PROFILE_ROUNDS, label)
     vocab = tcfg.vocab_size
     for c in backend.state.committed:
         assert c is None or all(0 <= int(t) < vocab for t in c)
@@ -689,11 +844,12 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
     return counts, rounds, at_start
 
 
-def profile_rounds(torch, cell, n, label):
-    """Phase 5b: ``n`` more rounds of the same session under torch.profiler
-    (after the checked rounds, so their counts are not mixed in): device
-    busy time against host wall time, the kernels that take it, and the
-    host<->device copies and syncs the round makes."""
+def profile_rounds(torch, step, n, label, unit="round"):
+    """Phase 5b: ``n`` more rounds (or steps) of the same session under
+    torch.profiler (after the checked ones, so their counts are not mixed
+    in): device busy time against host wall time, the kernels that take it,
+    and the host<->device copies and syncs each makes.  ``step()`` returns
+    None once the session has drained."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -701,7 +857,7 @@ def profile_rounds(torch, cell, n, label):
         t = time.perf_counter()
         done = 0
         for _ in range(n):
-            if cell.step() is None:
+            if step() is None:
                 break
             done += 1
         torch.cuda.synchronize()
@@ -718,18 +874,83 @@ def profile_rounds(torch, cell, n, label):
     kernels = [e for e in avgs if dev_us(e) > 0
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels)
-    log(f"{label} profile: {done} rounds, wall {wall_us / 1e3 / done:.2f} ms/round "
-        f"(profiler on), device busy {busy / 1e3 / done:.2f} ms/round, "
+    u = unit
+    log(f"{label} profile: {done} {u}s, wall {wall_us / 1e3 / done:.2f} ms/{u} "
+        f"(profiler on), device busy {busy / 1e3 / done:.2f} ms/{u}, "
         f"idle share {1 - busy / wall_us:.3f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-        log(f"  {dev_us(e) / 1e3 / done:9.3f} ms/round  {e.count / done:7.1f} "
-            f"calls/round  {e.key[:90]}")
+        log(f"  {dev_us(e) / 1e3 / done:9.3f} ms/{u}  {e.count / done:7.1f} "
+            f"calls/{u}  {e.key[:90]}")
     for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize",
                  "cudaDeviceSynchronize", "cudaHostAlloc"):
         hit = [e for e in avgs if e.key == name]
         if hit:
-            log(f"  host: {name} {hit[0].count / done:.1f} calls/round, "
-                f"{hit[0].cpu_time_total / 1e3 / done:.3f} ms/round")
+            log(f"  host: {name} {hit[0].count / done:.1f} calls/{u}, "
+                f"{hit[0].cpu_time_total / 1e3 / done:.3f} ms/{u}")
+
+
+def plain_decode_path(torch, ops, cfg, *, K=8, M=128, steps=DECODE_STEPS,
+                      max_len=1024):
+    """Phase 9: the plain (non-speculative) engine at full width: ``K``
+    prompts of ``M`` tokens, ``steps`` sampled decode steps.  Counters are
+    set to 0 just before ``start()``, which must launch B8 once per layer;
+    every step launches B7 once per layer and makes one host fetch; every
+    plain counter stays 0.  Returns (launch counts, per-step records,
+    launch counts of start)."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import gumbel_noise
+
+    label = "plain decode path"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, max_len=max_len, cache_dtype=torch.bfloat16)
+    eng.init_params(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (K, M), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t1 = time.perf_counter()
+    state = eng.start(prompts)
+    torch.cuda.synchronize()
+    at_start = ops.counts()
+    assert at_start["flash_attention"]["kernel"] == cfg.num_layers, at_start
+    assert all(c["plain"] == 0 for c in at_start.values()), at_start
+    log(f"{label}: weights in {t1 - t0:.2f} s, contiguous prefill of {K}x{M} "
+        f"in {time.perf_counter() - t1:.2f} s; params "
+        f"{eng.model.num_params(eng.params)}; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; launches in start() "
+        f"{ {k: v['kernel'] for k, v in at_start.items() if v['kernel']} }")
+    records, total_s = [], 0.0
+    for i in range(steps):
+        before = ops.counts()["decode_attention"]["kernel"]
+        h0 = eng.host_syncs
+        t = time.perf_counter()
+        state, nxt = eng.decode_step(state, gumbel_noise(gen, (K, cfg.vocab_size)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        assert ops.counts()["decode_attention"]["kernel"] - before \
+            == cfg.num_layers
+        assert eng.host_syncs - h0 == 1
+        total_s += dt
+        records.append({"step": i, "ms": 1e3 * dt})
+    counts = ops.counts()
+    assert all(c["plain"] == 0 for c in counts.values()), counts
+    assert all(len(c) == M + steps for c in state.committed)
+    assert all(0 <= int(t) < cfg.vocab_size for c in state.committed for t in c)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: {steps} steps of {K} streams, mean step "
+        f"{1e3 * total_s / steps:.2f} ms, {K * steps / total_s:.2f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    holder = [state]
+
+    def step():
+        holder[0], _ = eng.decode_step(
+            holder[0], gumbel_noise(gen, (K, cfg.vocab_size)))
+        return True
+
+    profile_rounds(torch, step, PROFILE_ROUNDS, label, unit="step")
+    return counts, records, at_start
 
 
 def main() -> int:
@@ -743,6 +964,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.kernels import build, cases, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_verify_sample as fvs
     from repro_torch.kernels import gather_softmax_prob as gsp
     from repro_torch.kernels import paged_attention as pa
@@ -773,12 +996,15 @@ def main() -> int:
     paged, verify = check_kernels(torch, cases, pa, fvs)
     tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
     ctree, scan = check_contiguous_kernels(torch, cases, pta, ta, ssd)
+    decode, flash = check_decode_kernels(torch, cases, da, fa)
 
     # 4. small-input reference check
     reference_check(torch, np)
+    serving_engine_reference_check(torch, np)
 
-    # 5. the J=1 path, 6. the tree path, 7. the contiguous tree path and
-    # 8. the hybrid path, each on its own engine, the last one freed first
+    # 5. the J=1 path, 6. the tree path, 7. the contiguous tree path,
+    # 8. the hybrid path and 9. the plain decode path, each on its own
+    # engine, the last one freed first
     from repro_torch.configs import get_config
 
     def free(label):
@@ -806,18 +1032,26 @@ def main() -> int:
     runs["contiguous tree"] = main_path(
         torch, np, ops, *pair, label="contiguous tree path",
         scheme="multidraft", scheme_params={"J_min": 2, "J_max": 3},
-        path_ops=("tree_attention", "gather_softmax_prob", "residual_sample"),
+        path_ops=("tree_attention", "gather_softmax_prob", "residual_sample",
+                  "decode_attention"),
         syncs=2, min_width=2, n_rounds=CONTIGUOUS_ROUNDS,
-        cache_kind="contiguous")
+        cache_kind="contiguous",
+        start_ops={"flash_attention": pair[0].num_layers + pair[1].num_layers})
     free("contiguous tree")
     zamba = get_config("zamba2-2.7b").replace(**bf16)
     runs["hybrid"] = main_path(
         torch, np, ops, zamba, pair[1], torch.bfloat16, label="hybrid path",
-        scheme="hete", scheme_params={}, path_ops=("fused_verify_sample",),
+        scheme="hete", scheme_params={},
+        path_ops=("fused_verify_sample", "decode_attention"),
         syncs=1, min_width=1, n_rounds=HYBRID_ROUNDS, cache_kind="contiguous",
-        start_ops={"ssd_scan": zamba.num_layers}, NEW=10 ** 6)
+        start_ops={"ssd_scan": zamba.num_layers,
+                   "flash_attention": (zamba.num_layers // zamba.hybrid_group
+                                       + pair[1].num_layers)},
+        NEW=10 ** 6)
+    free("hybrid")
+    runs["plain decode"] = plain_decode_path(torch, ops, pair[0])
 
-    # 9. result lines
+    # 10. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))
@@ -863,6 +1097,12 @@ def main() -> int:
               pick(ctree, *CONTIGUOUS_TREE_HEADLINE), ctree),
         entry("ssd_scan", f"{csrc}/ssd_scan.cu", f"{tpu}/ssd_scan.py:93",
               pick(scan, *SSD_HEADLINE), scan),
+        entry("decode_attention", f"{csrc}/decode_attention.cu",
+              f"{tpu}/decode_attention.py:81", pick(decode, *DECODE_HEADLINE),
+              decode),
+        entry("flash_attention", f"{csrc}/flash_attention.cu",
+              f"{tpu}/flash_attention.py:95", pick(flash, *FLASH_HEADLINE),
+              flash),
     ]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} launched on no path"

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
            "gather_softmax_prob", "residual_sample", "tree_attention",
-           "ssd_scan")
+           "ssd_scan", "decode_attention", "flash_attention")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

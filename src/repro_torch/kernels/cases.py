@@ -556,3 +556,110 @@ def ssd_work(x, dt, A, B, C, chunk, initial_state=None) -> tuple[int, int]:
     tri = chunk * (chunk + 1) // 2
     ops = 2 * b * h * n_chunks * (tri * (n + p) + 2 * chunk * p * n)
     return n_bytes, ops
+
+
+# ---------------------------------------------------------------------------
+# decode attention and flash attention over contiguous keys
+# ---------------------------------------------------------------------------
+
+def decode_case(B, H, KV, D, S, lengths, dtype, device, seed=0):
+    """(q (B, H, D), k_cache, v_cache (B, S, KV, D), lengths (B,) int32) of
+    one decode step: ``lengths`` is a (lo, hi) range the rows draw from
+    (both ends inclusive) or the list of the rows' lengths."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, H, D), generator=g)
+    kc = torch.randn((B, S, KV, D), generator=g)
+    vc = torch.randn((B, S, KV, D), generator=g)
+    if isinstance(lengths, tuple):
+        ln = torch.randint(lengths[0], lengths[1] + 1, (B,), generator=g)
+    else:
+        ln = torch.tensor(lengths)
+    return (q.to(device, dtype), kc.to(device, dtype), vc.to(device, dtype),
+            ln.to(device, torch.int32))
+
+
+def decode_attention_held(q, k_cache, v_cache, lengths):
+    """The plain version in float32 on the same inputs (as
+    ``paged_attention_held``)."""
+    from .decode_attention import decode_attention_plain
+
+    return decode_attention_plain(q.float(), k_cache.float(), v_cache.float(),
+                                  lengths)
+
+
+def decode_work(q, k_cache, v_cache, lengths) -> tuple[int, int]:
+    """(bytes, operations) decode attention needs for these inputs: q, the
+    output and lengths once, the K/V rows below min(lengths, S) of every kv
+    head, and 4*D operations per (query head, visible key)."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    item = q.element_size()
+    keys = int(lengths.cpu().long().clamp(0, S).sum())
+    return (2 * q.numel() * item + lengths.numel() * 4
+            + 2 * keys * KV * D * item, 4 * H * D * keys)
+
+
+def decode_sdpa_inputs(q, k_cache, v_cache, lengths):
+    """The same attention as one library call: (q (B, H, 1, D), K/V
+    (B, H, S, D) with the GQA heads expanded, keyword arguments with the
+    (B, 1, 1, S) boolean mask).  Built once, outside any timing."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    k = k_cache.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    v = v_cache.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=q.device)[None]
+            < lengths.long()[:, None])[:, None, None]
+    return q[:, :, None].contiguous(), k, v, {"attn_mask": mask}
+
+
+def flash_case(B, Sq, Skv, H, KV, D, dtype, device, seed=0):
+    """(q (B, Sq, H, D), k, v (B, Skv, KV, D)) of a prefill."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g)
+    k = torch.randn((B, Skv, KV, D), generator=g)
+    v = torch.randn((B, Skv, KV, D), generator=g)
+    return q.to(device, dtype), k.to(device, dtype), v.to(device, dtype)
+
+
+def flash_attention_held(q, k, v, causal=True):
+    """The plain version in float32 on the same inputs (as
+    ``paged_attention_held``)."""
+    from .flash_attention import flash_attention_plain
+
+    return flash_attention_plain(q.float(), k.float(), v.float(),
+                                 causal=causal)
+
+
+def flash_work(q, k, v, causal=True) -> tuple[int, int]:
+    """(bytes, operations) of the prefill: q, k, v and the output once (the
+    last query row sees every key), and 4*D operations per (query head,
+    visible key): query i sees min(i + Skv - Sq + 1, Skv) keys when causal."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    item = q.element_size()
+    if causal:
+        seen = sum(max(0, min(i + Skv - Sq + 1, Skv)) for i in range(Sq))
+    else:
+        seen = Sq * Skv
+    return ((2 * q.numel() + k.numel() + v.numel()) * item,
+            4 * B * H * D * seen)
+
+
+def flash_sdpa_inputs(q, k, v, causal=True):
+    """The same attention as one library call: (B, H, S, D) operands with
+    the GQA heads expanded and keyword arguments (``is_causal`` when the
+    causal diagonal is the top-left one, Sq == Skv; else a boolean mask).
+    Built once, outside any timing."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    kk = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    vv = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    if not causal:
+        kwargs = {}
+    elif Sq == Skv:
+        kwargs = {"is_causal": True}
+    else:
+        kwargs = {"attn_mask": (torch.arange(Skv, device=q.device)[None]
+                                <= torch.arange(Sq, device=q.device)[:, None]
+                                + (Skv - Sq))}
+    return q.transpose(1, 2).contiguous(), kk, vv, kwargs

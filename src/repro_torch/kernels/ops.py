@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.obs import trace
 
+from . import decode_attention as _da
+from . import flash_attention as _fa
 from . import fused_verify_sample as _fvs
 from . import gather_softmax_prob as _gsp
 from . import paged_attention as _pa
@@ -27,10 +29,12 @@ from . import ssd_scan as _ssd
 from . import tree_attention as _ta
 
 OPS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
-       "gather_softmax_prob", "residual_sample", "tree_attention", "ssd_scan")
+       "gather_softmax_prob", "residual_sample", "tree_attention", "ssd_scan",
+       "decode_attention", "flash_attention")
 _MODULES = {"paged_attention": _pa, "fused_verify_sample": _fvs,
             "paged_tree_attention": _pta, "gather_softmax_prob": _gsp,
-            "residual_sample": _rs, "tree_attention": _ta, "ssd_scan": _ssd}
+            "residual_sample": _rs, "tree_attention": _ta, "ssd_scan": _ssd,
+            "decode_attention": _da, "flash_attention": _fa}
 _plain_calls = {name: 0 for name in OPS}
 
 
@@ -183,6 +187,40 @@ def tree_attention(q, k_cache, v_cache, lengths, win_mask):
             _plain_calls["tree_attention"] += 1
             out = _ta.tree_attention_plain(q, k_cache, v_cache, lengths,
                                            win_mask)
+        sp.attach(out)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """One query step against a contiguous KV cache.
+
+    q: (B, H, D); caches: (B, S, KV, D); lengths: (B,) int32, row b attends
+    positions [0, lengths_b) (all S when lengths_b >= S).  Returns (B, H, D).
+    """
+    route = _route(q)
+    with _span("ops.decode_attention", q, route) as sp:
+        if route == "cuda":
+            out = _da.decode_attention_cuda(q, k_cache, v_cache, lengths)
+        else:
+            _plain_calls["decode_attention"] += 1
+            out = _da.decode_attention_plain(q, k_cache, v_cache, lengths)
+        sp.attach(out)
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Causal (or full) GQA attention: the prefill.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D); with ``causal`` query i
+    attends keys j <= i + (Skv - Sq).  Returns (B, Sq, H, D).
+    """
+    route = _route(q)
+    with _span("ops.flash_attention", q, route) as sp:
+        if route == "cuda":
+            out = _fa.flash_attention_cuda(q, k, v, causal=causal)
+        else:
+            _plain_calls["flash_attention"] += 1
+            out = _fa.flash_attention_plain(q, k, v, causal=causal)
         sp.attach(out)
     return out
 

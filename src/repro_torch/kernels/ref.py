@@ -5,7 +5,7 @@ in ``csrc/``: the CPU path of ``ops.py`` runs it, and the card tests hold
 the kernel against it on the same inputs.  The functions mirror the JAX
 package's oracles operation for operation, with the deliberate differences
 noted at ``paged_attention_ref`` and ``paged_tree_attention_ref`` (rows
-that see no key).  ``ssd_decode_ref`` has no kernel: the one-token
+that see no key; ``decode_attention_ref`` keeps the oracle's answer there).  ``ssd_decode_ref`` has no kernel: the one-token
 recurrence is plain PyTorch on every device, as in the JAX package.
 """
 
@@ -16,6 +16,56 @@ import math
 import torch
 
 _NEG = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """Causal (or full) GQA attention of q over k/v: the prefill.
+
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D) -> (B, Sq, H, D).  With
+    ``causal`` query i attends kv j <= i + (Skv - Sq) (the bottom-right
+    offset: the queries are the last Sq positions).  Masked logits are
+    -1e30 and the probabilities are cast to v's dtype before the PV
+    product, as in the JAX oracle."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, KV, G, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    if causal:
+        mask = (torch.arange(Skv, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq))
+        logits = torch.where(mask, logits, torch.full((), _NEG,
+                                                      device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, Sq, H, D)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         scale: float | None = None) -> torch.Tensor:
+    """One query step against a contiguous KV cache.
+
+    q: (B, H, D); caches: (B, S, KV, D); lengths: (B,) -> (B, H, D); row b
+    attends cache positions [0, lengths_b) (all S when lengths_b >= S).  As
+    the JAX oracle, a row with lengths_b <= 0 takes the softmax over all
+    -1e30, the mean of its S values, where the kernel returns 0; such rows
+    are never committed."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, D)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float() * scale
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths.long()[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits, torch.full((), _NEG, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache)
+    return out.reshape(B, H, D)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -8,7 +8,9 @@ MLP, one weight set) runs with its own per-invocation contiguous KV cache.
 functional as in ``ssm.MambaLM``; the KV caches are written in place (they
 need no rollback: positions past a row's committed prefix are masked).
 The shared block's attention is ``layers.attention_apply`` on the
-contiguous layout (``gqa_attention`` over the cache, as the JAX package).
+contiguous layout: ``ops.flash_attention`` in the prefill and
+``ops.decode_attention`` on every per-token step (the JAX package runs
+``gqa_attention`` over the cache there; the function is the same).
 """
 
 from __future__ import annotations
@@ -170,10 +172,10 @@ class HybridLM:
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        mask = causal_mask(S, cache["k"].shape[2], device=x.device)
-        offset = torch.zeros((B,), dtype=torch.int32, device=x.device)
-        x, cache = self._forward(params, x, positions, mask, cache=cache,
-                                 offset=offset)
+        # the 0-d offset 0, as the JAX package: the shared block's prefill
+        # runs ops.flash_attention over the prompt's own keys, unmasked here
+        x, cache = self._forward(params, x, positions, None, cache=cache,
+                                 offset=0)
         return (self._logits(params, x), cache,
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -184,15 +186,14 @@ class HybridLM:
         ``ssm`` and ``conv``: the KV entries need no rollback (masked by
         position)."""
         T = tokens.shape[1]
-        S_max = cache["k"].shape[2]
         pos = torch.as_tensor(pos, device=params["embed"].device)
-        kj = torch.arange(S_max, device=pos.device)
         logits_steps, snaps = [], None
         for t in range(T):
+            # a T = 1 step: the shared block runs ops.decode_attention at
+            # lengths pos + t + 1, which needs no mask
             x = self._embed(params, tokens[:, t:t + 1])
             positions = (pos + t)[:, None]
-            mask = (kj[None, None, :] <= positions[:, :, None])[:, None, None]
-            x, cache = self._forward(params, x, positions, mask, cache=cache,
+            x, cache = self._forward(params, x, positions, None, cache=cache,
                                      offset=pos + t, decode=True)
             logits_steps.append(self._logits(params, x))
             if return_snapshots:

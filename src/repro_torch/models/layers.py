@@ -144,8 +144,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Sq, H, D); k, v: (B, Skv, KV, D); mask broadcastable to
     (B, KV, G, Sq, Skv) or None.  Returns (B, Sq, H, D).  Cache-free
-    scoring and the sequential windows of the contiguous layout run it (the
-    JAX package keeps its jnp path there too); the paged path runs
+    scoring and the sequential windows of T > 1 tokens at per-row offsets
+    on the contiguous layout (the J=1 verify window) run it, as the JAX
+    package does; the contiguous T = 1 windows and the prefill run
+    ``ops.decode_attention`` / ``ops.flash_attention`` and the paged path
     ``ops.paged_attention`` instead.
     """
     B, Sq, H, D = q.shape
@@ -372,9 +374,16 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
     * no table: ``kv_cache`` holds contiguous (B, S, KV, D) caches; the
       window is written at ``cache_offset`` (in place, clamped as
       ``update_kv_cache``).  A tree window runs ``ops.tree_attention``
-      (lengths = offset); a sequential window runs ``gqa_attention`` over
-      the whole cache under ``mask``, as the JAX package does (the cache IS
-      the attention operand, so there is no gather for a kernel to skip).
+      (lengths = offset).  The prefill (``cache_offset`` the python int 0)
+      runs ``ops.flash_attention`` causally over the window's own keys and
+      values, cast to the cache dtype as the cache then holds them: key j
+      <= i are exactly the ones written.  A T = 1 window runs
+      ``ops.decode_attention`` with lengths = offset + 1 (an offset >= S
+      writes at S - 1 and attends all S keys, as the mask did).  Other
+      sequential windows (T > 1 at per-row offsets: the J=1 verify window)
+      run ``gqa_attention`` over the whole cache under ``mask``.  The JAX
+      package runs ``gqa_attention`` for all three (``layers.py:364``): the
+      function is the same, the dispatch differs.
     """
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
@@ -385,8 +394,20 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
         out = gqa_attention(q, k, v, mask)
         return out.reshape(B, S, num_heads * head_dim) @ params["wo"], (k, v)
     k_cache, v_cache = kv_cache
-    offset = torch.as_tensor(cache_offset, device=x.device).expand(B)
     q = q.to(k_cache.dtype).contiguous()
+    if page_table is None and window_mask is None and isinstance(
+            cache_offset, int) and cache_offset == 0:
+        k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+        ctx = kops.flash_attention(q, k, v, causal=True)
+        k_cache[:, :S] = k
+        v_cache[:, :S] = v
+        out = ctx.to(x.dtype).reshape(B, S, num_heads * head_dim) @ params["wo"]
+        return out, (k_cache, v_cache)
+    if isinstance(cache_offset, int):
+        offset = torch.full((B,), cache_offset, dtype=torch.int32,
+                            device=x.device)
+    else:
+        offset = torch.as_tensor(cache_offset, device=x.device).expand(B)
     if page_table is not None:
         paged_update_kv_cache(k_cache, k, offset, page_table)
         paged_update_kv_cache(v_cache, v, offset, page_table)
@@ -404,7 +425,14 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
             ctx = kops.tree_attention(q, k_cache, v_cache,
                                       offset.to(torch.int32).contiguous(),
                                       window_mask)
+        elif S == 1:
+            ctx = kops.decode_attention(
+                q[:, 0], k_cache, v_cache,
+                (offset + 1).to(torch.int32).contiguous())[:, None]
         else:
+            if mask is None:
+                raise ValueError("a contiguous window of T > 1 tokens at "
+                                 "per-row offsets needs its mask")
             ctx = gqa_attention(q, k_cache, v_cache, mask)
     out = ctx.to(x.dtype).reshape(B, S, num_heads * head_dim) @ params["wo"]
     return out, (k_cache, v_cache)

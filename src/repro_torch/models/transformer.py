@@ -18,8 +18,11 @@ into the other.  The layer loop is a plain python loop (the counterpart of
 ``jax.lax.scan``).  Paged attention goes through ``ops.paged_attention``
 (``ops.paged_tree_attention`` for tree windows), contiguous tree windows
 through ``ops.tree_attention``: the CUDA kernels on the card, their plain
-versions on the CPU.  Contiguous sequential windows run ``gqa_attention``
-over the cache, as the JAX package does.  Caches are updated in place.
+versions on the CPU.  On the contiguous layout the prefill runs
+``ops.flash_attention`` over the prompt's own keys and every T = 1 window
+``ops.decode_attention``; the T > 1 sequential windows (J=1 verification)
+run ``gqa_attention`` over the cache, as the JAX package does for all
+three.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -223,11 +226,11 @@ class DecoderLM:
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        offset = torch.zeros((B,), dtype=torch.int32, device=x.device)
-        mask = (None if "pages" in cache else
-                causal_mask(S, self._cache_kv_capacity(cache), device=x.device))
-        x, cache = self._stack_forward(params, x, positions, cache, offset,
-                                       mask=mask)
+        # the 0-d offset 0, as the JAX package: every row starts at the
+        # beginning of its cache, so the contiguous layout attends the
+        # window's own keys (``ops.flash_attention``) and the paged one
+        # runs ``ops.paged_attention`` at lengths 1
+        x, cache = self._stack_forward(params, x, positions, cache, 0)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(params, x), cache, aux
 
@@ -258,8 +261,8 @@ class DecoderLM:
         else:
             offsets = torch.as_tensor(window_depth, device=x.device).long()
         positions = pos[:, None].long() + offsets
-        mask = None
-        if "pages" not in cache and window_mask is None:
+        mask = None     # T = 1 runs ops.decode_attention, which needs none
+        if "pages" not in cache and window_mask is None and T > 1:
             kj = torch.arange(self._cache_kv_capacity(cache), device=x.device)
             mask = (kj[None, None, :] <= positions[:, :, None])[:, None, None]
         x, cache = self._stack_forward(params, x, positions, cache, pos,

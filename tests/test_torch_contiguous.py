@@ -432,6 +432,10 @@ def test_engine_sequential_rounds_match_reference(ref):
     c = tops.counts()
     assert c["fused_verify_sample"]["plain"] == len(SEQ_ROUNDS)
     assert c["paged_attention"]["plain"] == c["tree_attention"]["plain"] == 0
+    # the draft steps of the contiguous layout run B7 (the prefill, B8, ran
+    # in start() before the counters were reset)
+    assert c["decode_attention"]["plain"] > 0
+    assert c["flash_attention"]["plain"] == 0
     assert all(v["kernel"] == 0 for v in c.values())
 
 
@@ -462,7 +466,7 @@ def test_engine_tree_rounds_match_reference(ref, commit):
         assert _committed(st) == want["committed"]
     assert len(ref[commit]) == ROUNDS_OF[commit]
     c = tops.counts()
-    assert c["tree_attention"]["plain"] > 0
+    assert c["tree_attention"]["plain"] > 0 and c["decode_attention"]["plain"] > 0
     assert c["paged_tree_attention"]["plain"] == c["paged_attention"]["plain"] == 0
 
 

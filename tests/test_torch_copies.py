@@ -86,6 +86,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 @pytest.mark.parametrize("entry", [
     "repro_torch.serving.spec_engine:SpecEngine",
+    "repro_torch.serving.engine:ServingEngine",
     "repro_torch.serving.kv_cache:PagedKVCache",
     "repro_torch.models.model_zoo:build_model",
     "repro_torch.models.transformer:DecoderLM",

@@ -21,8 +21,10 @@ paged tree attention, and a chain mask must equal paged tree attention over
 the same keys laid out in pages, bit for bit.  The SSD scan's y is held
 against the plain version in float32 within 1e-4 (float32, the scan's band
 in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
-``cases.SSD_TOL``), its float32 final state within 1e-4.  This file imports
-no jax.
+``cases.SSD_TOL``), its float32 final state within 1e-4.  Decode and flash
+attention (B7, B8) are held like paged attention, at the path shapes and at
+lengths 1, S and past S, Sq < Skv and non-causal.  This file imports no
+jax.
 """
 
 import numpy as np
@@ -30,6 +32,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import cases
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_verify_sample as fvs
 from repro_torch.kernels import gather_softmax_prob as gsp
 from repro_torch.kernels import ops
@@ -131,6 +135,10 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     x, dt, A, B, C, _ = cases.ssd_case(1, 1, 2, 16, 1, 16, torch.float32, cuda)
     ops.ssd_decode(x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],      # no counter
                    torch.zeros((1, 2, 16, 16), device=cuda))
+    ops.decode_attention(*cases.decode_case(2, 4, 2, 16, 32, (1, 32),
+                                            torch.float32, cuda))
+    ops.flash_attention(*cases.flash_case(2, 9, 9, 4, 2, 16, torch.float32,
+                                          cuda))
     assert ops.counts() == {
         "paged_attention": {"kernel": 1, "plain": 0},
         "fused_verify_sample": {"kernel": 1, "plain": 0},
@@ -138,7 +146,9 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
         "gather_softmax_prob": {"kernel": 1, "plain": 0},
         "residual_sample": {"kernel": 1, "plain": 0},
         "tree_attention": {"kernel": 1, "plain": 0},
-        "ssd_scan": {"kernel": 1, "plain": 0}}
+        "ssd_scan": {"kernel": 1, "plain": 0},
+        "decode_attention": {"kernel": 1, "plain": 0},
+        "flash_attention": {"kernel": 1, "plain": 0}}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -469,9 +479,124 @@ def test_contiguous_rounds_on_the_card_equal_the_cpu(cuda, arch):
                            "gather_softmax_prob", "residual_sample"),
             "mamba2-130m": ("ssd_scan", "fused_verify_sample"),
             "zamba2-2.7b": ("ssd_scan", "fused_verify_sample")}[arch]
+    # every engine's draft prefills through B8 and steps through B7
+    used += ("decode_attention", "flash_attention")
     for name in used:
         assert card[3][name]["kernel"] > 0 and cpu[3][name]["plain"] > 0
     assert all(c["plain"] == 0 for c in card[3].values())
+
+
+# ---------------------------------------------------------------------------
+# decode attention (B7) and flash attention (B8), the plain serving engine
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = [
+    # (B, H, KV, D, S, lengths): lengths a (lo, hi) range or the rows' list
+    (3, 4, 2, 16, 40, (1, 40)),                 # smoke step, GQA
+    (8, 32, 4, 64, 1024, (128, 520)),           # tinyllama draft step
+    (8, 32, 32, 80, 1024, (128, 300)),          # zamba2 shared-attention step
+    (8, 32, 32, 128, 1024, (127, 190)),         # llama2-7b plain decode
+    (4, 32, 4, 64, 1024, [1, 1024, 1100, 700]),  # lengths 1, S, past S
+    (3, 8, 1, 80, 100, [1, 100, 130]),          # G = 8 at D = 80, ragged tile
+]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, shape, dtype):
+    args = cases.decode_case(*shape, dtype=dtype, device=cuda)
+    got = da.decode_attention_cuda(*args)
+    want = cases.decode_attention_held(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    rtol, atol = cases.PAGED_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def test_decode_attention_returns_zero_for_a_dead_row(cuda):
+    """A row of length 0 sees no key: 0, as the Pallas kernel (the plain
+    version keeps the oracle's mean there); the live rows still match."""
+    q, kc, vc, _ = cases.decode_case(3, 8, 2, 64, 64, (1, 64), torch.float32,
+                                     cuda)
+    ln = torch.tensor([0, 64, 7], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_cuda(q, kc, vc, ln)
+    want = cases.decode_attention_held(q, kc, vc, ln)
+    assert not got[0].any()
+    torch.testing.assert_close(got[1:], want[1:], rtol=2e-5, atol=2e-5)
+
+
+FLASH_SHAPES = [
+    # (B, Sq, Skv, H, KV, D, causal)
+    (2, 9, 9, 4, 2, 16, True),            # smoke prefill (16-row tiles)
+    (8, 127, 127, 32, 32, 128, True),     # llama2-7b prefill
+    (8, 127, 127, 32, 4, 64, True),       # tinyllama prefill
+    (8, 127, 127, 32, 32, 80, True),      # zamba2 shared-attention prefill
+    (2, 70, 200, 8, 2, 64, True),         # Sq < Skv: bottom-right diagonal
+    (2, 100, 100, 8, 2, 80, False),       # non-causal
+]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    B, Sq, Skv, H, KV, D, causal = shape
+    q, k, v = cases.flash_case(B, Sq, Skv, H, KV, D, dtype, cuda)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = cases.flash_attention_held(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    rtol, atol = cases.PAGED_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def test_b7_b8_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v = cases.flash_case(1, 8, 4, 4, 2, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="see no key"):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(*cases.flash_case(1, 4, 4, 2, 1, 256,
+                                                  torch.float32, cuda))
+    q, kc, vc, ln = cases.decode_case(1, 34, 2, 16, 8, (1, 8), torch.float32,
+                                      cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        da.decode_attention_cuda(q, kc, vc, ln)
+    q, kc, vc, ln = cases.decode_case(1, 4, 2, 16, 8, (1, 8), torch.float32,
+                                      cuda)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention_cuda(q, kc, vc, ln.long())
+
+
+def test_serving_engine_on_the_card_equals_the_cpu(cuda):
+    """The plain engine on the smoke config commits the same tokens on the
+    card (B8 in start, B7 every step) as on the CPU (plain versions),
+    greedy and sampled with the same noise."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("deepseek-7b").smoke()
+    prompts = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 257, (3, 9)).astype(np.int32))
+    noise = -torch.empty((6, 3, cfg.vocab_size)).exponential_(
+        generator=torch.Generator().manual_seed(4)).log()
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, max_len=48, device=dev)
+        eng.init_params(0)
+        if dev != "cpu":
+            eng.params = params
+        else:
+            params = _to(eng.params, cuda)
+        ops.reset_counts()
+        greedy = eng.generate(prompts.to(dev), 6, temperature=0)
+        sampled = eng.generate(prompts.to(dev), 6, noise.to(dev),
+                               temperature=0.8)
+        out[str(dev)] = ([list(map(int, c)) for c in greedy],
+                         [list(map(int, c)) for c in sampled], ops.counts())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card[:2] == cpu[:2]
+    for name in ("decode_attention", "flash_attention"):
+        assert card[2][name]["kernel"] > 0 and card[2][name]["plain"] == 0
+        assert cpu[2][name]["plain"] == card[2][name]["kernel"]
 
 
 def _to(tree, device):

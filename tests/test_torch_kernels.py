@@ -356,6 +356,12 @@ def test_ops_count_plain_calls_on_cpu():
                                          "cpu", init=True)
     tops.ssd_scan(x, dt, A, Bm, C, chunk=8, initial_state=st)
     tops.ssd_decode(x[:, 0], dt[:, 0], A, Bm[:, 0], C[:, 0], st)  # no counter
+    tops.decode_attention(*cases.decode_case(B, H, KV, D, 16, (1, 16),
+                                             torch.float32, "cpu"))
+    tops.flash_attention(*cases.flash_case(B, 5, 5, H, KV, D, torch.float32,
+                                           "cpu"))
+    tops.flash_attention(*cases.flash_case(B, 3, 5, H, KV, D, torch.float32,
+                                           "cpu"), causal=False)
     assert tops.counts() == {
         "paged_attention": {"kernel": 0, "plain": 1},
         "fused_verify_sample": {"kernel": 0, "plain": 1},
@@ -363,7 +369,9 @@ def test_ops_count_plain_calls_on_cpu():
         "gather_softmax_prob": {"kernel": 0, "plain": 1},
         "residual_sample": {"kernel": 0, "plain": 2},
         "tree_attention": {"kernel": 0, "plain": 1},
-        "ssd_scan": {"kernel": 0, "plain": 1}}
+        "ssd_scan": {"kernel": 0, "plain": 1},
+        "decode_attention": {"kernel": 0, "plain": 1},
+        "flash_attention": {"kernel": 0, "plain": 2}}
     tops.reset_counts()
     assert all(c == {"kernel": 0, "plain": 0} for c in tops.counts().values())
 

@@ -366,7 +366,12 @@ def test_engine_rounds_match_reference(ref, arch):
     start, _ = _prompts()
     tops.reset_counts()
     st = eng.start(torch.from_numpy(start))
-    assert tops.counts()["ssd_scan"]["plain"] == eng.target_cfg.num_layers
+    tcfg = eng.target_cfg
+    assert tops.counts()["ssd_scan"]["plain"] == tcfg.num_layers
+    # B8 runs the draft's prefill layers and the hybrid's shared-block ones
+    shared = tcfg.num_layers // tcfg.hybrid_group if tcfg.family == "hybrid" else 0
+    assert tops.counts()["flash_attention"]["plain"] \
+        == eng.draft_cfg.num_layers + shared
     V = eng.target_cfg.vocab_size
     for r, (lengths, w) in enumerate(zip(ROUNDS, want["rounds"])):
         h0 = eng.host_syncs
@@ -381,6 +386,8 @@ def test_engine_rounds_match_reference(ref, arch):
         assert eng.host_syncs - h0 == w["host_syncs"] == 1
         assert eng.pool_stats() == w["pool_stats"]
         assert _committed(st) == w["committed"]
+    # every draft step and every hybrid target step ran B7
+    assert tops.counts()["decode_attention"]["plain"] > 0
     # the rolled-back state of every row equals the reference's
     np.testing.assert_array_equal(st.target_pos.numpy(), want["target_pos"])
     for k in ("ssm", "conv"):
