@@ -8,8 +8,9 @@ result line, without them.  Imports nothing of jax and nothing of the JAX
 package.  Phases (none catches a failure):
 
   1. the card: nvidia-smi's name and power limit, torch's device name
-  2. build all nine kernels from ``src/repro_torch/csrc`` (one nvcc each, in
-     parallel); print build seconds and ptxas register/smem/spill lines
+  2. build the ten kernels from ``src/repro_torch/csrc`` (nine sources, one
+     nvcc each, in parallel; B7 and B9 share ``decode_attention.cu``); print
+     build seconds and ptxas register/smem/spill lines
   3. each kernel against its plain version on the card at the shapes the
      serving paths give it: max error, exact-match counts, kernel / plain /
      library ms (CUDA events, L2 flushed between launches), and the bound
@@ -26,7 +27,12 @@ package.  Phases (none catches a failure):
      attention (B7: the TinyLlama draft step, Zamba2's shared-attention step
      at head dim 80, Llama-2-7B's plain decode step, and lengths 1, S and
      past S) and flash attention (B8: the Llama-2-7B, TinyLlama and Zamba2
-     prefills, Sq < Skv, non-causal) are held like paged attention.
+     prefills, Sq < Skv, non-causal) are held like paged attention.  Int8
+     decode attention (B9) over caches made by ``quantize_kv`` from the
+     same normal K/V (Llama-2-7B, TinyLlama and Zamba2 steps, the JAX kernel
+     bench's shape, lengths 1, S, past S and 0) is held like B7 on its live
+     rows, its dead row must be 0, and its error against B7 on the
+     unquantized caches must stay under the JAX package's budget of 0.05.
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
      weights and draws, three sequential rounds then three tree rounds
@@ -70,13 +76,20 @@ package.  Phases (none catches a failure):
      steps; flash_attention 32 launches in ``start()``, decode_attention 32
      a step, one host fetch a step, every plain counter 0; ms per step,
      tokens/s and peak memory; then 3 profiled steps
- 10. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
+ 10. the int8 path, on phase 9's engine while it is alive: for each of
+     Llama-2-7B's 32 layers, its (8, 1024, 32, 128) bf16 K/V view of the
+     cache through ``ops.quantize_kv`` and one ``ops.decode_attention_q8``
+     at lengths ``state.pos`` with a seeded bf16 query; decode_attention_q8
+     exactly 32 launches and nothing else launched or called plain; then
+     each layer held against its plain version within ``cases.PAGED_TOL``
+     and against B7 on the bf16 slab, and the bytes of both slabs
+ 11. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
      line ``{"ok": true, "device": {...}}``
 
 Each path's counters are set to 0 just before its engine's ``start()`` and
 read after its last checked round or step; ``launches`` in the kernels line
 sums them over the paths, prefills included (``launches_per_round`` counts
-per step on the plain decode path).
+per step on the plain decode path and per 32-layer pass on the int8 path).
 """
 
 from __future__ import annotations
@@ -151,6 +164,16 @@ FLASH_CASES = [
     ("non-causal", (2, 100, 100, 8, 2, 80, False)),
 ]
 FLASH_HEADLINE = ("llama2-7b prefill", "bfloat16")
+Q8_CASES = [
+    # name, (B, H, KV, D, S, lengths): a (lo, hi) range or the rows' list
+    ("llama2-7b plain decode", (8, 32, 32, 128, 1024, (127, 190))),
+    ("tinyllama-1.1b draft step", (8, 32, 4, 64, 1024, (128, 520))),
+    ("zamba2-2.7b shared-attention step", (8, 32, 32, 80, 1024, (128, 160))),
+    ("jax kernel bench", (4, 8, 4, 64, 512, [256] * 4)),
+    ("lengths 1, S, past S, 0", (4, 32, 4, 64, 1024, [1, 1024, 1100, 0])),
+]
+Q8_HEADLINE = ("llama2-7b plain decode", "bfloat16")
+Q8_BUDGET = 0.05    # int8 against exact K/V, tests/test_kernels.py:475
 DECODE_STEPS = 64
 
 
@@ -542,11 +565,62 @@ def check_decode_kernels(torch, cases, da, fa):
     return decode, flash
 
 
+def check_q8_kernel(torch, cases, da, daq):
+    """Phase 3, int8 decode attention (B9) against its plain version at the
+    path shapes and the edge rows, and against B7 on the unquantized caches;
+    returns records."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q8 = []
+    for name, shape in Q8_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cases.q8_case(*shape, dtype=dtype, device="cuda")
+            exact = cases.decode_case(*shape, dtype=dtype, device="cuda")
+            live = args[-1] > 0
+            got = daq.decode_attention_q8_cuda(*args)
+            want = cases.q8_held(*args)
+            plain = daq.decode_attention_q8_plain(*args).float()
+            b7 = da.decode_attention_cuda(*exact).float()
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got[~live].any():
+                raise AssertionError(f"decode_attention_q8 {name} {dtype}: "
+                                     f"output {got.dtype}, a dead row not 0")
+            got = got.float()
+            err_b7 = float((got - b7)[live].abs().max())
+            if not err_b7 < Q8_BUDGET:
+                raise AssertionError(f"decode_attention_q8 {name} {dtype}: "
+                                     f"{err_b7} from B7 on the exact caches")
+            n_bytes, n_ops = cases.q8_work(*args)
+            sq, sk, sv, kw = cases.q8_sdpa_inputs(*args)
+            rec = _attention_record(
+                torch, cases, name, dtype,
+                dict(zip("B H KV D S".split(), shape[:5]),
+                     lengths=args[-1].tolist()),
+                got[live], want[live], plain[live], n_bytes, n_ops,
+                lambda: daq.decode_attention_q8_cuda(*args),
+                lambda: daq.decode_attention_q8_plain(*args), None)
+            rec.update(
+                dead_rows=int((~live).sum()),
+                max_abs_err_vs_decode_attention_exact=err_b7,
+                decode_attention_exact_ms=cases.time_ms(
+                    lambda: da.decode_attention_cuda(*exact)),
+                sdpa_dequantized_ms=cases.time_ms(lambda: sdpa(sq, sk, sv,
+                                                               **kw)))
+            log(f"decode_attention_q8 {name:33s} {rec['dtype']:8s} "
+                + _attention_line(rec)
+                + f"; {err_b7:.3e} vs B7 on the exact caches (budget "
+                f"{Q8_BUDGET}), B7 {rec['decode_attention_exact_ms']:.4f} ms, "
+                f"sdpa over dequantized caches (not the same function) "
+                f"{rec['sdpa_dequantized_ms']:.4f} ms")
+            q8.append(rec)
+    return q8
+
+
 def _attention_record(torch, cases, name, dtype, shape, got, want, plain,
                       n_bytes, n_ops, kernel_fn, plain_fn, library_fn):
     """One case of an attention kernel held against its float32 plain
     version within ``cases.PAGED_TOL``, with its times and bound; raises
-    when they disagree."""
+    when they disagree.  ``library_fn`` None: no single library call
+    computes the function."""
     err = float((got - want).abs().max())
     rtol, atol = cases.PAGED_TOL[dtype]
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
@@ -559,19 +633,20 @@ def _attention_record(torch, cases, name, dtype, shape, got, want, plain,
         "max_abs_err_vs_plain_same_dtype": float((got - plain).abs().max()),
         "ms": cases.time_ms(kernel_fn),
         "plain_ms": cases.time_ms(plain_fn, iters=10),
-        "library_ms": cases.time_ms(library_fn),
+        "library_ms": None if library_fn is None else cases.time_ms(library_fn),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": n_bytes, "ops": n_ops,
     }
 
 
 def _attention_line(rec):
+    lib = ("library none" if rec["library_ms"] is None
+           else f"sdpa {rec['library_ms']:.4f} ms")
     return (f"max|err| {rec['max_abs_err']:.3e} vs f32 plain (rtol "
             f"{rec['rtol']}, atol {rec['atol']}), "
             f"{rec['max_abs_err_vs_plain_same_dtype']:.3e} vs {rec['dtype']} "
             f"plain  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
-            f"  sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
+            f"  {lib}  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def reference_check(torch, np):
@@ -895,8 +970,8 @@ def plain_decode_path(torch, ops, cfg, *, K=8, M=128, steps=DECODE_STEPS,
     prompts of ``M`` tokens, ``steps`` sampled decode steps.  Counters are
     set to 0 just before ``start()``, which must launch B8 once per layer;
     every step launches B7 once per layer and makes one host fetch; every
-    plain counter stays 0.  Returns (launch counts, per-step records,
-    launch counts of start)."""
+    plain counter stays 0.  Returns ((launch counts, per-step records,
+    launch counts of start), the engine, its last state)."""
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import gumbel_noise
 
@@ -950,7 +1025,75 @@ def plain_decode_path(torch, ops, cfg, *, K=8, M=128, steps=DECODE_STEPS,
         return True
 
     profile_rounds(torch, step, PROFILE_ROUNDS, label, unit="step")
-    return counts, records, at_start
+    return (counts, records, at_start), eng, holder[0]
+
+
+def int8_path(torch, ops, cases, da, daq, eng, state):
+    """Phase 10: ``ops.quantize_kv`` then ``ops.decode_attention_q8`` over
+    each layer's bf16 K/V view of the plain-decode engine's cache, at
+    lengths ``state.pos``, one seeded bf16 query per layer.  Counters are set
+    to 0 just before the 32-layer pass and read just after it: B9 once per
+    layer, nothing else.  Then each layer is held against its plain version
+    and compared with B7 on the bf16 slab.  Returns (launch counts, [the
+    pass's record], launch counts at its start)."""
+    label = "int8 path"
+    cfg = eng.cfg
+    lengths = state.pos
+    S = eng.cache["k"].shape[2]
+    assert 0 < int(lengths.min()) and int(lengths.max()) <= S, lengths
+    gen = torch.Generator(device=eng.device).manual_seed(3)
+    qs = [torch.randn((lengths.shape[0], cfg.num_heads, cfg.head_dim),
+                      generator=gen, device=eng.device, dtype=torch.bfloat16)
+          for _ in range(cfg.num_layers)]
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    at_start = ops.counts()
+    t = time.perf_counter()
+    layers = []
+    for i, q in enumerate(qs):
+        kq, ks, vq, vs = ops.quantize_kv(eng.cache["k"][i], eng.cache["v"][i])
+        layers.append((q, kq, vq, ks, vs,
+                       ops.decode_attention_q8(q, kq, vq, ks, vs, lengths)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = ops.counts()
+    assert counts["decode_attention_q8"]["kernel"] == cfg.num_layers, counts
+    assert all(c["plain"] == 0 and (c["kernel"] == 0 or op == "decode_attention_q8")
+               for op, c in counts.items()), counts
+    rtol, atol = cases.PAGED_TOL[torch.bfloat16]
+    errs, errs_b7 = [], []
+    for i, (q, kq, vq, ks, vs, out) in enumerate(layers):
+        want = cases.q8_held(q, kq, vq, ks, vs, lengths)
+        b7 = da.decode_attention_cuda(q, eng.cache["k"][i], eng.cache["v"][i],
+                                      lengths)
+        errs.append(float((out.float() - want).abs().max()))
+        errs_b7.append(float((out.float() - b7.float()).abs().max()))
+        if out.dtype != torch.bfloat16 or not torch.allclose(
+                out.float(), want, rtol=rtol, atol=atol):
+            raise AssertionError(f"{label} layer {i}: kernel disagrees with "
+                                 f"plain, max|err| {errs[-1]}")
+    q, kq, vq, ks, vs, _ = layers[0]
+    layer_ms = cases.time_ms(lambda: daq.decode_attention_q8_cuda(
+        q, kq, vq, ks, vs, lengths))
+    int8_bytes = sum(t.numel() * t.element_size()
+                     for layer in layers for t in layer[1:5])
+    bf16_bytes = sum(eng.cache[leaf].numel() * eng.cache[leaf].element_size()
+                     for leaf in ("k", "v"))
+    rec = {"layers": cfg.num_layers, "lengths": lengths.tolist(),
+           "wall_ms": 1e3 * dt, "layer0_kernel_ms": layer_ms,
+           "max_abs_err": max(errs), "rtol": rtol, "atol": atol,
+           "max_abs_err_vs_decode_attention_bf16": max(errs_b7),
+           "int8_slab_bytes": int8_bytes, "bf16_slab_bytes": bf16_bytes}
+    log(f"{label}: {cfg.num_layers} layers of {tuple(eng.cache['k'].shape[1:])} "
+        f"bf16 K/V through quantize_kv + decode_attention_q8 at lengths "
+        f"{lengths.tolist()} in {1e3 * dt:.2f} ms wall; launches "
+        f"{ {k: v for k, v in counts.items() if v['kernel'] or v['plain']} }; "
+        f"max|err| vs f32 plain {max(errs):.3e} (rtol {rtol}, atol {atol}), "
+        f"per layer {[f'{e:.1e}' for e in errs]}; vs B7 on the bf16 slab "
+        f"{max(errs_b7):.3e}, per layer {[f'{e:.1e}' for e in errs_b7]}; "
+        f"layer 0 kernel {layer_ms:.4f} ms; slab bytes int8 {int8_bytes} "
+        f"(scales included) against bf16 {bf16_bytes}")
+    return counts, [rec], at_start
 
 
 def main() -> int:
@@ -965,6 +1108,7 @@ def main() -> int:
 
     from repro_torch.kernels import build, cases, ops
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import decode_attention_q8 as daq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_verify_sample as fvs
     from repro_torch.kernels import gather_softmax_prob as gsp
@@ -997,6 +1141,7 @@ def main() -> int:
     tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
     ctree, scan = check_contiguous_kernels(torch, cases, pta, ta, ssd)
     decode, flash = check_decode_kernels(torch, cases, da, fa)
+    q8 = check_q8_kernel(torch, cases, da, daq)
 
     # 4. small-input reference check
     reference_check(torch, np)
@@ -1004,7 +1149,7 @@ def main() -> int:
 
     # 5. the J=1 path, 6. the tree path, 7. the contiguous tree path,
     # 8. the hybrid path and 9. the plain decode path, each on its own
-    # engine, the last one freed first
+    # engine, the last one freed first; 10. the int8 path on 9's engine
     from repro_torch.configs import get_config
 
     def free(label):
@@ -1049,9 +1194,12 @@ def main() -> int:
                                        + pair[1].num_layers)},
         NEW=10 ** 6)
     free("hybrid")
-    runs["plain decode"] = plain_decode_path(torch, ops, pair[0])
+    runs["plain decode"], eng, state = plain_decode_path(torch, ops, pair[0])
+    runs["int8 decode"] = int8_path(torch, ops, cases, da, daq, eng, state)
+    del eng, state
+    free("plain decode")
 
-    # 10. result lines
+    # 11. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))
@@ -1103,6 +1251,8 @@ def main() -> int:
         entry("flash_attention", f"{csrc}/flash_attention.cu",
               f"{tpu}/flash_attention.py:95", pick(flash, *FLASH_HEADLINE),
               flash),
+        entry("decode_attention_q8", f"{csrc}/decode_attention.cu",
+              f"{tpu}/decode_attention.py:168", pick(q8, *Q8_HEADLINE), q8),
     ]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} launched on no path"

@@ -27,11 +27,25 @@
 // (Zamba2) works like the powers of two.  About 80 KB of dynamic shared
 // memory at D = 128.  Simple and right first: only B * KV blocks run (32 at
 // the TinyLlama draft step), no split over the key axis, no tensor cores.
+//
+// The same kernel, instantiated on an int8 cache type, replaces
+// decode_attention.py::decode_attention_q8_pallas (the pl.pallas_call at
+// decode_attention.py:168): caches (B, S, KV, D) int8 with float32 scales
+// (B, KV), one per (batch row, kv head).  The dequant is fused into the tile
+// load, as the Pallas kernel fuses it on its VMEM tiles: each thread reads
+// four codes (one char4) of K and of V, converts them to float32 and
+// multiplies them by the block's k_scale / v_scale (one float each, read
+// once per block) before staging them.  Everything after the load is shared
+// with the floating-point instantiations.  An int8 row is D bytes (16 to 128, always a multiple of 16), so a
+// key costs half its bfloat16 bytes and the bound halves.  The int8 tensor
+// cores are no help while q is floating point.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,6 +81,13 @@ template <> struct Vec4<__nv_bfloat16> {
   }
 };
 
+template <> struct Vec4<int8_t> {   // four int8 codes: one 4-byte load
+  static __device__ __forceinline__ float4 load(const int8_t* p) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+  }
+};
+
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -77,13 +98,18 @@ constexpr size_t smem_floats() {
          (size_t)G_MAX * (KT + 1) + 3 * (size_t)G_MAX;
 }
 
-template <typename T, int D>
+// T: q and out (float or bf16); TC: the caches, T itself (B7) or int8_t
+// (B9, dequantized on the load with the block's k_scale / v_scale).
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                        const T* __restrict__ v_cache,
+decode_attention_kernel(const T* __restrict__ q, const TC* __restrict__ k_cache,
+                        const TC* __restrict__ v_cache,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
                         const int* __restrict__ lengths, T* __restrict__ out,
                         int H, int KV, int S, float scale) {
   static_assert(D % 4 == 0 && D / 4 <= THREADS, "head dim");
+  constexpr bool Q8 = std::is_same<TC, int8_t>::value;
   static_assert(KT == 64, "the softmax warp reads keys lane and lane + 32");
   constexpr int DP = D + 4;                 // padded shared row
   constexpr int C4 = D / 4;                 // float4 columns of a row
@@ -109,6 +135,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int warp = tid >> 5;
   const int key_end = max(0, min(lengths[b], S));
   const T* qb = q + ((size_t)b * H + (size_t)kv * G) * D;
+  float ks = 1.f, vs = 1.f;
+  if constexpr (Q8) {
+    ks = k_scale[b * KV + kv];
+    vs = v_scale[b * KV + kv];
+  }
 
   for (int i = tid; i < G * C4; i += THREADS) {
     const int r = i / C4, c = i % C4;
@@ -133,8 +164,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     for (int i = tid; i < n * C4; i += THREADS) {
       const int j = i / C4, c = i % C4;
       const size_t off = (((size_t)b * S + k0 + j) * KV + kv) * D + c * 4;
-      Vec4<float>::store(k_s + j * DP + c * 4, Vec4<T>::load(k_cache + off));
-      Vec4<float>::store(v_s + j * DP + c * 4, Vec4<T>::load(v_cache + off));
+      float4 kx = Vec4<TC>::load(k_cache + off);
+      float4 vx = Vec4<TC>::load(v_cache + off);
+      if constexpr (Q8) {
+        kx.x *= ks; kx.y *= ks; kx.z *= ks; kx.w *= ks;
+        vx.x *= vs; vx.y *= vs; vx.z *= vs; vx.w *= vs;
+      }
+      Vec4<float>::store(k_s + j * DP + c * 4, kx);
+      Vec4<float>::store(v_s + j * DP + c * 4, vx);
     }
     __syncthreads();
 
@@ -235,40 +272,48 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TC, int D>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
+                   const float* k_scale, const float* v_scale,
                    const int* lengths, void* out, int B, int H, int KV, int S,
                    float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   static bool sized = false;   // the attribute is set once per instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        decode_attention_kernel<T, TC, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     sized = true;
   }
   const dim3 grid(KV, B);
-  decode_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), lengths, static_cast<T*>(out), H, KV, S,
-      scale);
+  decode_attention_kernel<T, TC, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TC*>(k_cache),
+      static_cast<const TC*>(v_cache), k_scale, v_scale, lengths,
+      static_cast<T*>(out), H, KV, S, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TC>
 cudaError_t dispatch_d(int D, const void* q, const void* k_cache,
-                       const void* v_cache, const int* lengths, void* out, int B,
-                       int H, int KV, int S, float scale, cudaStream_t stream) {
+                       const void* v_cache, const float* k_scale,
+                       const float* v_scale, const int* lengths, void* out,
+                       int B, int H, int KV, int S, float scale,
+                       cudaStream_t stream) {
+#define DECODE_CASE(DIM)                                                     \
+  case DIM:                                                                  \
+    return launch<T, TC, DIM>(q, k_cache, v_cache, k_scale, v_scale, lengths, \
+                              out, B, H, KV, S, scale, stream);
   switch (D) {
-    case 16: return launch<T, 16>(q, k_cache, v_cache, lengths, out, B, H, KV, S, scale, stream);
-    case 32: return launch<T, 32>(q, k_cache, v_cache, lengths, out, B, H, KV, S, scale, stream);
-    case 64: return launch<T, 64>(q, k_cache, v_cache, lengths, out, B, H, KV, S, scale, stream);
-    case 80: return launch<T, 80>(q, k_cache, v_cache, lengths, out, B, H, KV, S, scale, stream);
-    case 96: return launch<T, 96>(q, k_cache, v_cache, lengths, out, B, H, KV, S, scale, stream);
-    case 128: return launch<T, 128>(q, k_cache, v_cache, lengths, out, B, H, KV, S, scale, stream);
+    DECODE_CASE(16)
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(80)
+    DECODE_CASE(96)
+    DECODE_CASE(128)
     default: return cudaErrorInvalidValue;
   }
+#undef DECODE_CASE
 }
 
 }  // namespace
@@ -287,9 +332,43 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
   const int* ln = static_cast<const int*>(lengths);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(D, q, k_cache, v_cache, ln, out, B, H, KV, S, scale, st);
+    err = dispatch_d<float, float>(D, q, k_cache, v_cache, nullptr, nullptr,
+                                   ln, out, B, H, KV, S, scale, st);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, q, k_cache, v_cache, ln, out, B, H, KV, S, scale, st);
+    err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(
+        D, q, k_cache, v_cache, nullptr, nullptr, ln, out, B, H, KV, S, scale,
+        st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// B9: q (B, H, D) and out (B, H, D) of one dtype (0 = float32, 1 =
+// bfloat16); caches (B, S, KV, D) int8; k_scale / v_scale (B, KV) float32;
+// lengths (B,) int32.  All contiguous and 16-byte aligned; H / KV <= 16.
+// Returns the cudaError_t of the launch.
+extern "C" int decode_attention_q8_launch(const void* q, const void* k_cache,
+                                          const void* v_cache,
+                                          const void* k_scale,
+                                          const void* v_scale,
+                                          const void* lengths, void* out,
+                                          int B, int H, int KV, int D, int S,
+                                          int dtype, float scale,
+                                          void* stream) {
+  if (KV < 1 || H % KV != 0 || H / KV > G_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ln = static_cast<const int*>(lengths);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch_d<float, int8_t>(D, q, k_cache, v_cache, ks, vs, ln, out, B,
+                                    H, KV, S, scale, st);
+  } else if (dtype == 1) {
+    err = dispatch_d<__nv_bfloat16, int8_t>(D, q, k_cache, v_cache, ks, vs, ln,
+                                            out, B, H, KV, S, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

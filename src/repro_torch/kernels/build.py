@@ -29,6 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# one library per source; ``decode_attention`` holds two entry points, B7's
+# ``decode_attention_launch`` and B9's ``decode_attention_q8_launch``
 KERNELS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
            "gather_softmax_prob", "residual_sample", "tree_attention",
            "ssd_scan", "decode_attention", "flash_attention")

@@ -612,6 +612,57 @@ def decode_sdpa_inputs(q, k_cache, v_cache, lengths):
     return q[:, :, None].contiguous(), k, v, {"attn_mask": mask}
 
 
+def q8_case(B, H, KV, D, S, lengths, dtype, device, seed=0):
+    """(q (B, H, D), kq, vq (B, S, KV, D) int8, k_scale, v_scale (B, KV)
+    float32, lengths (B,) int32): ``decode_case``'s inputs with its K/V
+    quantized by ``ref.quantize_kv``, in the argument order of
+    ``ops.decode_attention_q8``.  The unquantized caches are
+    ``decode_case`` at the same arguments."""
+    from .ref import quantize_kv
+
+    q, kc, vc, ln = decode_case(B, H, KV, D, S, lengths, dtype, device,
+                                seed=seed)
+    kq, ks, vq, vs = quantize_kv(kc, vc)
+    return q, kq, vq, ks, vs, ln
+
+
+def q8_held(q, k_cache, v_cache, k_scale, v_scale, lengths):
+    """The plain version in float32 on the same inputs (as
+    ``paged_attention_held``: a bfloat16 q is upcast exactly, and the
+    dequantized caches are float32 on both routes)."""
+    from .decode_attention_q8 import decode_attention_q8_plain
+
+    return decode_attention_q8_plain(q.float(), k_cache, v_cache, k_scale,
+                                     v_scale, lengths)
+
+
+def q8_work(q, k_cache, v_cache, k_scale, v_scale, lengths) -> tuple[int, int]:
+    """(bytes, operations) int8 decode attention needs for these inputs: q,
+    the output, lengths and both scales once, the int8 K/V rows below
+    min(lengths, S) of every kv head (1 byte an element); 4*D operations per
+    (query head, visible key) and one dequant multiply per K/V element
+    read."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    item = q.element_size()
+    keys = int(lengths.cpu().long().clamp(0, S).sum())
+    return (2 * q.numel() * item + lengths.numel() * 4
+            + (k_scale.numel() + v_scale.numel()) * 4
+            + 2 * keys * KV * D * k_cache.element_size(),
+            4 * H * D * keys + 2 * keys * KV * D)
+
+
+def q8_sdpa_inputs(q, k_cache, v_cache, k_scale, v_scale, lengths):
+    """SDPA's operands over the caches dequantized to q's dtype, built once
+    outside any timing (``decode_sdpa_inputs`` of the dequantized caches).
+    Not the same function: no single PyTorch call reads int8 K/V with
+    scales, so this times only the attention a fused library path would
+    leave after a dequant pass."""
+    k = (k_cache.float() * k_scale[:, None, :, None]).to(q.dtype)
+    v = (v_cache.float() * v_scale[:, None, :, None]).to(q.dtype)
+    return decode_sdpa_inputs(q, k, v, lengths)
+
+
 def flash_case(B, Sq, Skv, H, KV, D, dtype, device, seed=0):
     """(q (B, Sq, H, D), k, v (B, Skv, KV, D)) of a prefill."""
     g = torch.Generator(device="cpu").manual_seed(seed)

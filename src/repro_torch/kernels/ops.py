@@ -6,8 +6,8 @@ raises if the kernel does not build, take the inputs or launch); a CPU
 tensor runs the plain PyTorch version beside the kernel.  Every op keeps two
 counters, kernel launches (counted by the wrapper where it launches) and
 plain calls (counted here), so a run can show which path it went through.
-``ssd_decode`` is not among them: the one-token SSD recurrence has no kernel
-in the JAX package either and is plain PyTorch on every device, so "every
+``ssd_decode`` and ``quantize_kv`` are not among them: neither has a kernel
+in the JAX package, and both are plain PyTorch on every device, so "every
 plain counter is 0" still means that no kernel was bypassed.
 """
 
@@ -18,6 +18,7 @@ import torch
 from repro_torch.obs import trace
 
 from . import decode_attention as _da
+from . import decode_attention_q8 as _daq
 from . import flash_attention as _fa
 from . import fused_verify_sample as _fvs
 from . import gather_softmax_prob as _gsp
@@ -30,11 +31,12 @@ from . import tree_attention as _ta
 
 OPS = ("paged_attention", "fused_verify_sample", "paged_tree_attention",
        "gather_softmax_prob", "residual_sample", "tree_attention", "ssd_scan",
-       "decode_attention", "flash_attention")
+       "decode_attention", "flash_attention", "decode_attention_q8")
 _MODULES = {"paged_attention": _pa, "fused_verify_sample": _fvs,
             "paged_tree_attention": _pta, "gather_softmax_prob": _gsp,
             "residual_sample": _rs, "tree_attention": _ta, "ssd_scan": _ssd,
-            "decode_attention": _da, "flash_attention": _fa}
+            "decode_attention": _da, "flash_attention": _fa,
+            "decode_attention_q8": _daq}
 _plain_calls = {name: 0 for name in OPS}
 
 
@@ -205,6 +207,37 @@ def decode_attention(q, k_cache, v_cache, lengths):
             _plain_calls["decode_attention"] += 1
             out = _da.decode_attention_plain(q, k_cache, v_cache, lengths)
         sp.attach(out)
+    return out
+
+
+def decode_attention_q8(q, k_cache, v_cache, k_scale, v_scale, lengths):
+    """One query step against an int8 KV cache with per-head scales.
+
+    q: (B, H, D) float32 or bfloat16; caches: (B, S, KV, D) int8; scales:
+    (B, KV) float32 (``quantize_kv``); lengths: (B,) int32, row b attends
+    positions [0, lengths_b) (all S when lengths_b >= S).  Returns (B, H, D)
+    in q's dtype.
+    """
+    route = _route(q)
+    with _span("ops.decode_attention_q8", q, route) as sp:
+        if route == "cuda":
+            out = _daq.decode_attention_q8_cuda(q, k_cache, v_cache, k_scale,
+                                                v_scale, lengths)
+        else:
+            _plain_calls["decode_attention_q8"] += 1
+            out = _daq.decode_attention_q8_plain(q, k_cache, v_cache, k_scale,
+                                                 v_scale, lengths)
+        sp.attach(out)
+    return out
+
+
+def quantize_kv(k, v):
+    """Per (batch, kv head) symmetric int8 quantization of (B, S, KV, D)
+    caches, plain PyTorch on every device (no kernel, no counter).  Returns
+    (kq, k_scale, vq, v_scale): int8 codes and (B, KV) float32 scales."""
+    with _span("ops.quantize_kv", k, "plain") as sp:
+        out = _ref.quantize_kv(k, v)
+        sp.attach(out[0])
     return out
 
 

@@ -5,8 +5,10 @@ in ``csrc/``: the CPU path of ``ops.py`` runs it, and the card tests hold
 the kernel against it on the same inputs.  The functions mirror the JAX
 package's oracles operation for operation, with the deliberate differences
 noted at ``paged_attention_ref`` and ``paged_tree_attention_ref`` (rows
-that see no key; ``decode_attention_ref`` keeps the oracle's answer there).  ``ssd_decode_ref`` has no kernel: the one-token
-recurrence is plain PyTorch on every device, as in the JAX package.
+that see no key; ``decode_attention_ref`` keeps the oracle's answer there)
+and at ``decode_attention_quantized_ref`` (its output dtype).
+``ssd_decode_ref`` and ``quantize_kv`` have no kernel: they are plain
+PyTorch on every device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +68,38 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v_cache)
     return out.reshape(B, H, D)
+
+
+def decode_attention_quantized_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor,
+                                   k_scale: torch.Tensor,
+                                   v_scale: torch.Tensor,
+                                   lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention over an int8-quantized KV cache.
+
+    k_cache / v_cache: (B, S, KV, D) int8; scales: (B, KV) float32 per-head
+    dequant factors.  Dequantize to float32, then run the exact path (the
+    kernel fuses the dequant into its tile loads instead).  The JAX oracle
+    promotes the whole product to float32; here the result is cast to
+    ``q.dtype``, as the Pallas kernel returns it (equal for a float32 q)."""
+    k = k_cache.float() * k_scale[:, None, :, None]
+    v = v_cache.float() * v_scale[:, None, :, None]
+    return decode_attention_ref(q.float(), k, v, lengths).to(q.dtype)
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """Per (batch, kv-head) symmetric int8 quantization of a KV cache:
+    (kq, k_scale, vq, v_scale), codes (B, S, KV, D) int8 and scales (B, KV)
+    float32.  ``torch.round`` rounds half to even, as ``jnp.round``."""
+    def q_one(x):
+        xf = x.float()
+        scale = xf.abs().amax(dim=(1, 3)) / 127.0
+        scale = scale.clamp(min=1e-8)
+        q = torch.clamp(torch.round(xf / scale[:, None, :, None]), -127, 127)
+        return q.to(torch.int8), scale
+    kq, ks = q_one(k)
+    vq, vs = q_one(v)
+    return kq, ks, vq, vs
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -23,8 +23,10 @@ against the plain version in float32 within 1e-4 (float32, the scan's band
 in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
 ``cases.SSD_TOL``), its float32 final state within 1e-4.  Decode and flash
 attention (B7, B8) are held like paged attention, at the path shapes and at
-lengths 1, S and past S, Sq < Skv and non-causal.  This file imports no
-jax.
+lengths 1, S and past S, Sq < Skv and non-causal.  Int8 decode attention
+(B9) is held like B7 over caches made by ``quantize_kv``, returns 0 for a
+row of length 0, and its wrapper refuses each input the kernel does not
+take.  This file imports no jax.
 """
 
 import numpy as np
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.kernels import cases
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import decode_attention_q8 as daq
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_verify_sample as fvs
 from repro_torch.kernels import gather_softmax_prob as gsp
@@ -139,6 +142,10 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
                                             torch.float32, cuda))
     ops.flash_attention(*cases.flash_case(2, 9, 9, 4, 2, 16, torch.float32,
                                           cuda))
+    ops.quantize_kv(*cases.decode_case(2, 4, 2, 16, 32, (1, 32),      # no counter
+                                       torch.bfloat16, cuda)[1:3])
+    ops.decode_attention_q8(*cases.q8_case(2, 4, 2, 16, 32, (1, 32),
+                                           torch.bfloat16, cuda))
     assert ops.counts() == {
         "paged_attention": {"kernel": 1, "plain": 0},
         "fused_verify_sample": {"kernel": 1, "plain": 0},
@@ -148,7 +155,8 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
         "tree_attention": {"kernel": 1, "plain": 0},
         "ssd_scan": {"kernel": 1, "plain": 0},
         "decode_attention": {"kernel": 1, "plain": 0},
-        "flash_attention": {"kernel": 1, "plain": 0}}
+        "flash_attention": {"kernel": 1, "plain": 0},
+        "decode_attention_q8": {"kernel": 1, "plain": 0}}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -564,6 +572,74 @@ def test_b7_b8_refuse_what_the_kernels_do_not_take(cuda):
                                       cuda)
     with pytest.raises(ValueError, match="int32"):
         da.decode_attention_cuda(q, kc, vc, ln.long())
+
+
+Q8_SHAPES = [
+    # (B, H, KV, D, S, lengths): lengths a (lo, hi) range or the rows' list
+    (3, 4, 2, 16, 40, (1, 40)),                 # smoke step, GQA
+    (8, 32, 32, 128, 1024, (127, 190)),         # llama2-7b plain decode
+    (8, 32, 4, 64, 1024, (128, 520)),           # tinyllama draft step
+    (8, 32, 32, 80, 1024, (128, 160)),          # zamba2 shared-attention step
+    (4, 8, 4, 64, 512, [256] * 4),              # the JAX kernel bench's shape
+    (4, 32, 4, 64, 1024, [1, 1024, 1100, 700]),  # lengths 1, S, past S
+    (3, 8, 1, 80, 100, [1, 100, 130]),          # G = 8 at D = 80, ragged tile
+]
+
+
+@pytest.mark.parametrize("shape", Q8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_q8_kernel_matches_plain(cuda, shape, dtype):
+    args = cases.q8_case(*shape, dtype=dtype, device=cuda)
+    got = daq.decode_attention_q8_cuda(*args)
+    want = cases.q8_held(*args)
+    exact = da.decode_attention_cuda(*cases.decode_case(*shape, dtype=dtype,
+                                                        device=cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    rtol, atol = cases.PAGED_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    assert (got.float() - exact.float()).abs().max() < 0.05   # int8 budget
+
+
+def test_decode_attention_q8_returns_zero_for_a_dead_row(cuda):
+    """A row of length 0 sees no key: 0, as the Pallas kernel (the plain
+    version keeps the oracle's mean there); the live rows still match."""
+    q, kq, vq, ks, vs, _ = cases.q8_case(3, 8, 2, 64, 64, (1, 64),
+                                         torch.float32, cuda)
+    ln = torch.tensor([0, 64, 7], dtype=torch.int32, device=cuda)
+    got = daq.decode_attention_q8_cuda(q, kq, vq, ks, vs, ln)
+    want = cases.q8_held(q, kq, vq, ks, vs, ln)
+    assert not got[0].any()
+    torch.testing.assert_close(got[1:], want[1:], rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_q8_refuses_what_the_kernel_does_not_take(cuda):
+    q, kq, vq, ks, vs, ln = cases.q8_case(2, 4, 2, 16, 8, (1, 8),
+                                          torch.float32, cuda)
+    before = daq.launches
+
+    def refused(match, **swap):
+        args = dict(q=q, k_cache=kq, v_cache=vq, k_scale=ks, v_scale=vs,
+                    lengths=ln)
+        args.update(swap)
+        with pytest.raises(ValueError, match=match):
+            daq.decode_attention_q8_cuda(**args)
+
+    refused("CUDA", k_scale=ks.cpu())
+    refused("contiguous", q=q.transpose(0, 1).contiguous().transpose(0, 1))
+    refused("int8", k_cache=kq.float())
+    refused("one shape", v_cache=vq[:, :4].contiguous())
+    refused("scales", v_scale=vs.double())
+    refused("scales", k_scale=ks[:1].contiguous())
+    refused("at most 16", q=torch.zeros((2, 34, 16), device=cuda))
+    refused("head dim", q=q[..., :8].contiguous(),
+            k_cache=kq[..., :8].contiguous(), v_cache=vq[..., :8].contiguous())
+    shifted = torch.empty(kq.numel() + 1, dtype=torch.int8, device=cuda)[1:]
+    refused("aligned", k_cache=shifted.view(kq.shape).copy_(kq))
+    refused("int32", lengths=ln.long())
+    assert daq.launches == before        # a refusal launches nothing
+    daq.decode_attention_q8_cuda(q, kq, vq, ks, vs, ln)
+    assert daq.launches == before + 1
 
 
 def test_serving_engine_on_the_card_equals_the_cpu(cuda):

@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import cases
+from repro_torch.kernels import decode_attention_q8 as tdaq
 from repro_torch.kernels import fused_verify_sample as tfvs
 from repro_torch.kernels import gather_softmax_prob as tgsp
 from repro_torch.kernels import ops as tops
@@ -362,6 +363,9 @@ def test_ops_count_plain_calls_on_cpu():
                                            "cpu"))
     tops.flash_attention(*cases.flash_case(B, 3, 5, H, KV, D, torch.float32,
                                            "cpu"), causal=False)
+    q8 = cases.q8_case(B, H, KV, D, 16, (1, 16), torch.bfloat16, "cpu")
+    tops.quantize_kv(torch.ones((1, 4, 1, 16)), torch.ones((1, 4, 1, 16)))
+    tops.decode_attention_q8(*q8)
     assert tops.counts() == {
         "paged_attention": {"kernel": 0, "plain": 1},
         "fused_verify_sample": {"kernel": 0, "plain": 1},
@@ -371,7 +375,8 @@ def test_ops_count_plain_calls_on_cpu():
         "tree_attention": {"kernel": 0, "plain": 1},
         "ssd_scan": {"kernel": 0, "plain": 1},
         "decode_attention": {"kernel": 0, "plain": 1},
-        "flash_attention": {"kernel": 0, "plain": 2}}
+        "flash_attention": {"kernel": 0, "plain": 2},
+        "decode_attention_q8": {"kernel": 0, "plain": 1}}
     tops.reset_counts()
     assert all(c == {"kernel": 0, "plain": 0} for c in tops.counts().values())
 
@@ -403,8 +408,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tssd.ssd_scan_cuda(*cases.ssd_case(1, 8, 2, 16, 1, 16, torch.float32,
                                            "cpu")[:5], chunk=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdaq.decode_attention_q8_cuda(*cases.q8_case(1, 2, 1, 16, 8, (1, 8),
+                                                     torch.float32, "cpu"))
     assert tpa.launches == tfvs.launches == tpta.launches == 0
     assert tgsp.launches == trs.launches == tta.launches == tssd.launches == 0
+    assert tdaq.launches == 0
 
 
 def test_ops_reject_other_devices():
