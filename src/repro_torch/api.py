@@ -10,7 +10,9 @@
 
 ``SpecEngine(..., cache_kind="paged")`` serves churn from a page pool.  The
 gateway, continuous batching and the compiled round path come in later
-slices (ROADMAP A8-A10).
+slices (ROADMAP A8-A10).  Like ``repro.api``, importing this module loads
+no torch: the engines, the page allocator and ``RoundDraws`` resolve on
+first use.
 """
 
 from repro_torch.configs import get_config  # noqa: F401
@@ -20,12 +22,17 @@ from repro_torch.core.controller import (  # noqa: F401
     MultiSpinController,
     VerificationLatencyModel,
 )
-from repro_torch.core.draws import RoundDraws  # noqa: F401
 from repro_torch.core.schemes import (  # noqa: F401
     CellObservation,
     RoundPlan,
+    Scheme,
+    SchemeCapabilities,
+    SchemeCapabilityError,
     available_schemes,
+    build_scheme,
     get_scheme,
+    register_scheme,
+    scheme_table_markdown,
 )
 from repro_torch.serving.backends import (  # noqa: F401
     EngineBackend,
@@ -38,16 +45,11 @@ from repro_torch.serving.cell import (  # noqa: F401
     MultiSpinCell,
     RoundRecord,
 )
-from repro_torch.serving.kv_cache import (  # noqa: F401
-    PagedKVCache,
-    PagePoolExhausted,
-)
 from repro_torch.serving.scheduler import (  # noqa: F401
     Request,
     RoundScheduler,
     SchedulerStats,
 )
-from repro_torch.serving.spec_engine import SpecEngine, StreamState  # noqa: F401
 
 __all__ = [
     "AcceptanceEstimator",
@@ -66,6 +68,9 @@ __all__ = [
     "RoundRecord",
     "RoundScheduler",
     "SCHEDULES",
+    "Scheme",
+    "SchemeCapabilities",
+    "SchemeCapabilityError",
     "SchedulerStats",
     "SpecEngine",
     "StreamState",
@@ -73,6 +78,22 @@ __all__ = [
     "VerificationBackend",
     "VerificationLatencyModel",
     "available_schemes",
+    "build_scheme",
     "get_config",
     "get_scheme",
+    "register_scheme",
+    "scheme_table_markdown",
 ]
+
+_LAZY_TORCH = {"SpecEngine": "repro_torch.serving.spec_engine",
+               "StreamState": "repro_torch.serving.spec_engine",
+               "PagedKVCache": "repro_torch.serving.kv_cache",
+               "PagePoolExhausted": "repro_torch.serving.kv_cache",
+               "RoundDraws": "repro_torch.core.draws"}
+
+
+def __getattr__(name):
+    if name in _LAZY_TORCH:
+        import importlib
+        return getattr(importlib.import_module(_LAZY_TORCH[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,25 +13,49 @@
 // q, k, v and the output once are ~33 MB at Llama-2-7B against ~1 GFLOP of
 // causal products), operations only for prompts of many hundreds of tokens.
 //
-// Design.  One block per (query tile, query head, batch row) holds a tile of
-// 64 query rows (16 when Sq < 64) and walks tiles of 64 keys up to the
-// causal diagonal of its last row: the Pallas kernel's sequential kv-grid
-// axis becomes the loop inside the block, and the tiles above the diagonal
-// are skipped whole, as its `run` predicate does (flash_attention.py:35-38).
-// Per tile the 256 threads stage K and V as float32 in shared memory (rows
-// padded to D + 4 floats: 16-byte aligned, float4 reads free of bank
-// conflicts), compute the scores with one key and a group of rows per
-// thread (each K value loaded once for 16 rows), mask them by position,
-// update m / l per row (a warp per row) and accumulate P V with each thread
-// owning four output columns of a few rows.  Head dims are template
-// parameters, so 80 (Zamba2) works like the powers of two.  About 119 KB of
-// dynamic shared memory at D = 128.  Simple and right first: plain FMA
-// loops on the CUDA cores; wgmma and TMA are later work.
+// Design, bfloat16 (every serving path): the tensor cores.  One block of
+// four warps per (64-row query tile, query head, batch row); warp w owns
+// rows 16w .. 16w + 15 of the tile, held as mma A fragments in registers
+// for the whole walk (D / 4 registers).  Tiles of 64 keys are staged in
+// shared memory as bf16 (rows padded to D + 8: ldmatrix reads are free of
+// bank conflicts) by 16-byte cp.async copies into a two-stage ring, so
+// tile k + 1 loads while tile k computes.  Per tile each warp forms its
+// 16 x 64 scores with mma.sync.m16n8k16 (K fragments by ldmatrix), masks
+// them on the fragment (the key tail past Skv, and the causal diagonal on
+// the tiles that cross it), updates the online softmax in f32 registers
+// (the max and the rescale reduced within the quad of lanes that holds a
+// row; the row sums are kept per lane and reduced once at the end), splits
+// P into two bf16 parts (hi + lo, ~16 significant bits) in the A-fragment
+// layout and accumulates P V with mma.sync (V fragments by ldmatrix.trans,
+// each used for both parts) into f32 registers (D / 2 per lane).  One
+// bf16 rounding of P would move a row that sees few keys of opposite signs
+// by up to 2^-9 of |V|, past the f32 plain version's band; the split costs
+// twice the P V products, which are not what bounds the kernel.  Tiles above
+// the diagonal of the tile's last row are never loaded; 16-key steps above
+// a warp's own last row are skipped.  mma.sync, not wgmma: at the serving
+// shapes (Sq = 127, two 64-row tiles per head) a block's work is one or
+// two 64-key tiles, latency rather than tensor-core rate bounds it, and
+// mma.sync keeps every fragment in registers with no descriptor or
+// warpgroup fence; wgmma is the step when prompts reach thousands of
+// tokens.  A 128-row block of eight warps (each K/V tile read once per
+// head at Sq = 127, the Llama-2-7B prefill's 256 blocks in one wave) read
+// slower at four of the five phase-3 shapes.  ~87 KB of dynamic shared
+// memory at D = 128: two blocks an SM.
+//
+// float32 inputs (the configs' default dtype, run at smoke size; the
+// full-width serving paths run bf16) stay on the first kernel, unchanged:
+// one block per (query tile, head, row) holds 64 query rows (16 when
+// Sq < 64) and walks tiles of 64 keys staged as f32 in shared memory
+// (rows padded to D + 4), scores with one key and a group of rows per
+// thread, one warp per row for the softmax, P V with four output columns
+// a thread; plain FMA on the CUDA cores, ~119 KB of shared memory at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -39,7 +63,7 @@ constexpr int THREADS = 256;
 constexpr int KT = 64;       // keys per tile (the softmax warp reads two per lane)
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T> struct Vec4;   // four consecutive elements <-> float4
+template <typename T> struct Vec4;   // four consecutive elements <-> float4 (f32)
 template <> struct Vec4<float> {
   static __device__ __forceinline__ float4 load(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -48,24 +72,6 @@ template <> struct Vec4<float> {
     *reinterpret_cast<float4*>(p) = v;
   }
 };
-template <> struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 v) {
-    // round to nearest even, as torch's .to(bfloat16)
-    __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
-
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -260,28 +266,233 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t dispatch_bq(const void* q, const void* k, const void* v, void* out,
-                        int B, int Sq, int Skv, int H, int KV, int causal,
-                        float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int B, int Sq, int Skv, int H, int KV, int causal,
+                       float scale, cudaStream_t stream) {
   if (Sq >= 64)
-    return launch<T, D, 64>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-  return launch<T, D, 16>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
+    return launch<float, D, 64>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
+  return launch<float, D, 16>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* out, int B, int Sq, int Skv, int H, int KV,
-                       int causal, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16: return dispatch_bq<T, 16>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-    case 32: return dispatch_bq<T, 32>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-    case 64: return dispatch_bq<T, 64>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-    case 80: return dispatch_bq<T, 80>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-    case 96: return dispatch_bq<T, 96>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-    case 128: return dispatch_bq<T, 128>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core tiles
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_THREADS = 128;   // four warps, 16 query rows each
+constexpr int TC_BQ = 64;         // query rows of a block
+constexpr int TC_KT = 64;         // keys of a staged tile
+
+template <int D>
+constexpr size_t tc_smem_bytes() {   // q tile + two stages of K and V
+  return sizeof(bf16) * (size_t)(TC_BQ + 4 * TC_KT) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                            int Sq, int Skv, int H, int KV, int causal,
+                            float scale_log2) {
+  using namespace mma_bf16;
+  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  constexpr int DP = D + 8;        // padded shared row (bf16)
+  constexpr int C8 = D / 8;        // 16-byte chunks of a row
+  constexpr int KS = D / 16;       // k-steps of Q K^T
+  constexpr int NB = D / 8;        // 8-column blocks of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // TC_BQ x DP
+  bf16* k_s = q_s + TC_BQ * DP;                    // 2 x TC_KT x DP
+  bf16* v_s = k_s + 2 * TC_KT * DP;                // 2 x TC_KT x DP
+
+  const int q0 = blockIdx.x * TC_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int R = min(TC_BQ, Sq - q0);        // live rows of this tile
+  const int off = Skv - Sq;                 // query i attends keys <= i + off
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tq = lane & 3;
+  // keys past the last row's diagonal are never read: whole tiles skipped
+  const int key_end = causal ? max(0, min(q0 + R + off, Skv)) : Skv;
+  const int n_tiles = (key_end + TC_KT - 1) / TC_KT;
+  // the last key any row of this warp may see (causal), else past them all
+  const int warp_kmax = causal ? q0 + warp * 16 + 15 + off : Skv;
+
+  for (int i = tid; i < TC_BQ * C8; i += TC_THREADS) {
+    const int r = i / C8, c = i % C8;
+    const bool ok = r < R;
+    const bf16* src = ok ? q + (((size_t)b * Sq + q0 + r) * H + h) * D + c * 8 : q;
+    cp_async16(q_s + r * DP + c * 8, src, ok);
   }
+  auto load_tile = [&](int t, int stage) {
+    const int k0 = t * TC_KT;
+    for (int i = tid; i < TC_KT * C8; i += TC_THREADS) {
+      const int j = i / C8, c = i % C8;
+      const bool ok = k0 + j < Skv;
+      const size_t o = (((size_t)b * Skv + k0 + j) * KV + kvh) * D + c * 8;
+      const int d = (stage * TC_KT + j) * DP + c * 8;
+      cp_async16(k_s + d, ok ? k + o : k, ok);   // zeros past Skv: P V
+      cp_async16(v_s + d, ok ? v + o : v, ok);   // never meets a NaN
+    }
+  };
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max of rows gid, gid + 8
+  float l[2] = {0.f, 0.f};               // this lane's share of the row sums
+  const int qrow = q0 + warp * 16 + gid; // query index of row gid
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_tile(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();            // tile t (and the q tile) have landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * DP + kk * 16 +
+                            (lane >> 4) * 8);
+    }
+    const int k0 = t * TC_KT;
+    const bf16* ks = k_s + (t & 1) * TC_KT * DP;
+    const bf16* vs = v_s + (t & 1) * TC_KT * DP;
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {          // 16 keys: two 8-key blocks
+      if (k0 + np * 16 > warp_kmax) continue; // above every row of the warp
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // mask on the fragment, scale into the exp2 domain, row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + tq * 2 + (e & 1);
+        const int row = qrow + (e >> 1) * 8;
+        const bool seen = key < Skv && (!causal || key <= row + off);
+        s[n][e] = seen ? s[n][e] * scale_log2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    float corr[2], m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = exp2f(m[i] - m_use[i]);   // 0 while nothing was seen
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= corr[0]; o[n][1] *= corr[0];
+      o[n][2] *= corr[1]; o[n][3] *= corr[1];
+    }
+
+    // P (bf16 hi + lo) V on the tensor cores, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (k0 + kk * 16 > warp_kmax) continue;     // P is 0 there
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[2 * kk][e] - m_use[e >> 1]);
+        p[4 + e] = exp2f(s[2 * kk + 1][e] - m_use[e >> 1]);
+      }
+      uint32_t ah[4], al[4];           // P = hi + lo, each in bf16
+      split2(p[0], p[1], ah[0], al[0]);   // row gid, keys 2tq..+1
+      split2(p[2], p[3], ah[1], al[1]);   // row gid + 8
+      split2(p[4], p[5], ah[2], al[2]);   // row gid, keys 8 + 2tq..+1
+      split2(p[6], p[7], ah[3], al[3]);   // row gid + 8
+      l[0] += p[0] + p[1] + p[4] + p[5];
+      l[1] += p[2] + p[3] + p[6] + p[7];
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP +
+                          dp * 16 + (lane >> 4) * 8);
+        mma16816(o[2 * dp], ah, vb[0], vb[1]);
+        mma16816(o[2 * dp], al, vb[0], vb[1]);
+        mma16816(o[2 * dp + 1], ah, vb[2], vb[3]);
+        mma16816(o[2 * dp + 1], al, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before its reload
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + gid + half * 8;
+    if (r >= R) continue;
+    const float inv = l[half] > 0.f ? 1.f / l[half] : 0.f;   // no key: 0
+    bf16* orow = out + (((size_t)b * Sq + q0 + r) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + tq * 2) =
+          pack(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
+                        int B, int Sq, int Skv, int H, int KV, int causal,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  static bool sized = false;   // the attribute is set once per instantiation
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
+  flash_attention_bf16_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, KV,
+      causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                         void* out, int B, int Sq, int Skv, int H, int KV,
+                         int causal, float scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, out, B, Sq, Skv, H, KV, causal, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -297,12 +508,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch_d<float>(D, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st);
-  } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
+  switch (D) {
+    case 16: err = launch_dtype<16>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    case 32: err = launch_dtype<32>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    case 64: err = launch_dtype<64>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    case 80: err = launch_dtype<80>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    case 96: err = launch_dtype<96>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    case 128: err = launch_dtype<128>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -8,8 +8,8 @@ root, at first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited kernel is rebuilt and
-a stale library is never loaded.  ``build_all`` starts one nvcc per source
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel is rebuilt and a stale library is never loaded.  ``build_all`` starts one nvcc per source
 at once and waits for all of them.  Nothing here runs at import time: the
 CPU tests import every module of the port on a host without nvcc.
 """
@@ -55,7 +55,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -12,6 +12,8 @@ bound is the larger of the two.  Peaks are those of one H100 SXM at its
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
@@ -27,31 +29,64 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
 
 
 # GPU clock cycles of the spin that precedes each timed call (~2 ms at the
-# H100's 1.98 GHz): longer than the host takes to enqueue any call timed here
+# H100's 1.98 GHz); ``time_ms`` doubles it, at most ``SPIN_DOUBLINGS``
+# times, while the host takes longer than the spin to enqueue a call
 SPIN_CYCLES = 4_000_000
+SPIN_DOUBLINGS = 3
+
+# one entry per ``time_ms`` call: (calls whose host enqueue outlasted the
+# first spin, calls that still did after the last lengthening, final spin
+# cycles)
+spin_overruns: list[tuple[int, int, int]] = []
+
+
+def _spin_ms(cycles: int) -> float:
+    """Device time of one ``torch.cuda._sleep(cycles)``, in ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)           # warm: the first spin pays a load
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5, flush_mb: int = 64) -> float:
     """Mean device time of ``fn()`` in ms from CUDA events around each call,
     with the 50 MB L2 cache flushed (a ``flush_mb`` buffer rewritten)
     between calls, outside the timed window.  Before each call the card
-    spins for ``SPIN_CYCLES``, so the host has enqueued the whole call when
-    the start event fires: the window holds device time, not the wrapper's
-    host time (which exceeds a small kernel's own)."""
+    spins, so the host has enqueued the whole call when the start event
+    fires: the window holds device time, not the wrapper's host time (which
+    exceeds a small kernel's own).  The host's enqueue of each call is timed
+    (``time.perf_counter`` from the spin's enqueue to ``fn()``'s return);
+    if any outlasts the spin's device time, the spin is doubled and all
+    calls are timed again.  Each call appends its counts to
+    ``spin_overruns``."""
     flush = torch.empty(flush_mb << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
+    cycles, first = SPIN_CYCLES, None
+    for attempt in range(SPIN_DOUBLINGS + 1):
+        spin_s = 1e-3 * _spin_ms(cycles)
+        events, over = [], 0
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            over += time.perf_counter() - t0 > spin_s
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        first = over if first is None else first
+        if not over or attempt == SPIN_DOUBLINGS:
+            break
+        cycles *= 2
+    spin_overruns.append((first, over, cycles))
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
@@ -59,29 +94,58 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, flush_mb: int = 64) -> float:
 # paged attention
 # ---------------------------------------------------------------------------
 
-def paged_case(B, T, H, KV, D, ps, ctx, dtype, device, seed=0, holes=True):
-    """q (B, T, H, D) and pools with contexts of ctx/2..ctx tokens on
-    scattered, non-contiguous pages; slots past each row's window stay -1,
-    and with ``holes`` the last row is all -1 (a retired row).  ``ctx=1``
-    is a prefill at offset 0 (lengths 1: row t attends [0, t])."""
+def paged_case(B, T, H, KV, D, ps, ctx, dtype, device, seed=0, holes=True,
+               lengths=None, width=None):
+    """q (B, T, H, D) and pools with contexts of ctx/2..ctx tokens (or the
+    rows' ``lengths``) on scattered, non-contiguous pages; slots past each
+    row's window stay -1, and with ``holes`` the last row is all -1 (a
+    retired row).  ``ctx=1`` is a prefill at offset 0 (lengths 1: row t
+    attends [0, t]).  ``width`` sets the table's slots (a serving table is
+    max_len / ps wide), else the rows' windows and two more."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    n_slots = -(-(ctx + T) // ps) + 2
+    if lengths is not None:
+        ctx = max(lengths)
+    n_slots = width or -(-(ctx + T) // ps) + 2
     P = B * n_slots + 3
     q = torch.randn((B, T, H, D), generator=g)
     kp = torch.randn((P, ps, KV, D), generator=g)
     vp = torch.randn((P, ps, KV, D), generator=g)
-    lengths = torch.randint(max(1, ctx // 2), ctx + 1, (B,), generator=g)
+    if lengths is None:
+        lengths = torch.randint(max(1, ctx // 2), ctx + 1, (B,), generator=g)
+    else:
+        lengths = torch.tensor(lengths)
     perm = torch.randperm(P, generator=g)
     pt = torch.full((B, n_slots), -1, dtype=torch.int32)
     n = 0
     for b in range(B):
-        need = -(-(int(lengths[b]) + T - 1) // ps)
+        need = min(n_slots, -(-(int(lengths[b]) + T - 1) // ps))
         pt[b, :need] = perm[n:n + need].to(torch.int32)
         n += need
     if holes and B > 2:
         pt[-1] = -1
     return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
             pt.to(device), lengths.to(device, torch.int32))
+
+
+# the split of the slot axis at its edges (bf16 splits it): name, the
+# ``paged_case`` arguments (B, T, H, KV, D, ps, ctx) and keywords; the
+# tables are 64 slots wide, as the serving pools' (1024 tokens of 16)
+PAGED_EDGE_CASES = [
+    ("one split holds every live slot", (4, 1, 32, 4, 64, 16, 0),
+     dict(lengths=[5, 17, 40, 64], width=64, holes=False)),
+    ("more splits than live slots", (4, 9, 32, 32, 128, 16, 0),
+     dict(lengths=[1, 2, 3, 20], width=64, holes=False)),
+    ("lengths 0 and an all-(-1) row", (4, 1, 32, 4, 64, 16, 0),
+     dict(lengths=[0, 1, 300, 500], width=64)),
+    ("lengths 1, verify window", (8, 9, 32, 32, 128, 16, 0),
+     dict(lengths=[1] * 8, width=64)),
+    ("verify window T=9, serving table", (8, 9, 32, 32, 128, 16, 512),
+     dict(width=64)),
+    ("draft step, serving table", (8, 1, 32, 4, 64, 16, 512),
+     dict(width=64)),
+    ("prefill T=127, serving table", (8, 127, 32, 4, 64, 16, 1),
+     dict(width=64)),
+]
 
 
 # (rtol, atol) of the kernel against ``paged_attention_held``: float32 is the

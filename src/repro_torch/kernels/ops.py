@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import precision as _precision  # noqa: F401  (no TF32)
 from repro_torch.obs import trace
 
 from . import decode_attention as _da

@@ -8,6 +8,12 @@ every prefill, draft step and verification window of the paged serving
 path.  ``paged_attention_plain`` is the same function in plain PyTorch
 (``ref.paged_attention_ref``); ``ops.paged_attention`` picks between the
 two by the device of the tensors.
+
+At bfloat16 the kernel splits the page-table slots across blocks:
+``split_plan`` picks the row tile and the number of splits from shapes
+alone (never from ``lengths``, which would cost a host sync), and the
+last block of each tile to finish merges the splits' partials in the same
+launch, through a scratch buffer this module keeps per device.
 """
 
 from __future__ import annotations
@@ -20,16 +26,82 @@ import torch
 from . import build
 from .ref import paged_attention_ref as paged_attention_plain
 
-__all__ = ["paged_attention_cuda", "paged_attention_plain", "launches"]
+__all__ = ["paged_attention_cuda", "paged_attention_plain", "launches",
+           "sm_count", "split_plan", "split_ranges"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_PAGE_SIZE = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the bf16 kernel's split of the slot axis (``split_plan``): a grid of fewer
+# than SPLIT_BELOW blocks per SM is split to ~BLOCKS_PER_SM blocks per SM,
+# each split at least MIN_SPLIT_KEYS keys of the table (one 64-key chunk of
+# the kernel's walk).  On the H100 a grid that already fills the SMs (the
+# verify window, 256 blocks) only lost to a split: the walk is bound by the
+# bytes it reads, and a split adds partial writes and a merge
+# (``tools/paged_split_sweep.py``).
+BLOCKS_PER_SM = 2
+SPLIT_BELOW = 1.0
+MIN_SPLIT_KEYS = 64
+
 # kernel launches made through ``paged_attention_cuda``
 launches = 0
 
 _fn = None
+_sm_counts: dict[int, int] = {}
+# per device index: (float32 partials, int32 tickets), grown as needed; the
+# kernel leaves every ticket at 0.  One stream uses them at a time.
+_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_plan(B: int, KV: int, rows: int, n_slots: int, ps: int,
+               n_sm: int) -> tuple[int, int, int, int]:
+    """``(row_tile, row_tiles, n_split, split_slots)`` of the bf16 kernel
+    for ``rows`` = T * G query rows per kv head: 16-row tiles when they fit
+    (draft and verify windows), else 64; then, if the grid has fewer than
+    ``SPLIT_BELOW`` blocks per SM, enough splits of the ``n_slots`` slots
+    that it has ~``BLOCKS_PER_SM``, each split at least ``MIN_SPLIT_KEYS``
+    keys of the table.  Split s holds slots
+    ``[s * split_slots, min((s + 1) * split_slots, n_slots))``
+    (``split_ranges``): every slot once, and no split without a slot."""
+    row_tile = 16 if rows <= 16 else 64
+    row_tiles = -(-rows // row_tile)
+    blocks = B * KV * row_tiles
+    want = 1
+    if blocks < SPLIT_BELOW * n_sm:
+        want = -(-BLOCKS_PER_SM * n_sm // blocks)
+    n = max(1, min(want, n_slots * ps // MIN_SPLIT_KEYS, n_slots))
+    split_slots = max(1, -(-n_slots // n))
+    n_split = max(1, -(-n_slots // split_slots))
+    return row_tile, row_tiles, n_split, split_slots
+
+
+def split_ranges(n_slots: int, n_split: int,
+                 split_slots: int) -> list[tuple[int, int]]:
+    """The slot range ``[first, end)`` of each split, as the kernel walks it
+    (before clipping to the tile's horizon)."""
+    return [(s * split_slots, min(s * split_slots + split_slots, n_slots))
+            for s in range(n_split)]
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, read once and cached."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        props = torch.cuda.get_device_properties(idx)
+        _sm_counts[idx] = props.multi_processor_count
+    return _sm_counts[idx]
+
+
+def _scratch_for(device: torch.device, n_floats: int,
+                 n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    part, tickets = _scratch.get(device.index, (None, None))
+    if part is None or part.numel() < n_floats:
+        part = torch.empty(n_floats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _scratch[device.index] = (part, tickets)
+    return part, tickets
 
 
 def _entry():
@@ -37,7 +109,7 @@ def _entry():
     if _fn is None:
         fn = build.library("paged_attention").paged_attention_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -74,16 +146,32 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     _check(1 <= ps <= MAX_PAGE_SIZE, f"page size {ps} not in [1, {MAX_PAGE_SIZE}]")
     _check(page_table.dim() == 2 and page_table.shape[0] == B
            and lengths.shape == (B,), "page_table (B, n_slots), lengths (B,)")
+    _check(q.dtype == torch.float32
+           or all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)),
+           "bfloat16 q and pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    n_slots = page_table.shape[1]
+    row_tile, n_split, split_slots = 0, 1, 1
+    part = tickets = None
     with torch.cuda.device(q.device):
+        if q.dtype == torch.bfloat16:
+            row_tile, row_tiles, n_split, split_slots = split_plan(
+                B, KV, T * (H // KV), n_slots, ps, sm_count(q.device))
+            if n_split > 1:
+                n_part = B * KV * row_tiles * n_split * row_tile
+                part, tickets = _scratch_for(q.device, n_part * (D + 2),
+                                             B * KV * row_tiles)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                        page_table.data_ptr(), lengths.data_ptr(),
-                       out.data_ptr(), B, T, H, KV, D, ps,
-                       page_table.shape[1], _DTYPES[q.dtype],
-                       1.0 / math.sqrt(D), stream)
+                       out.data_ptr(),
+                       None if part is None else part.data_ptr(),
+                       None if tickets is None else tickets.data_ptr(),
+                       B, T, H, KV, D, ps, n_slots, row_tile, n_split,
+                       split_slots, _DTYPES[q.dtype], 1.0 / math.sqrt(D),
+                       stream)
     build.check(err, "paged_attention")
     launches += 1
     return out

@@ -19,6 +19,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import precision as _precision  # noqa: F401  (no TF32)
 from repro_torch.kernels import ops as kops
 
 Params = Any  # nested dict of tensors

@@ -18,12 +18,17 @@ like paged attention; ``gather_softmax_prob`` within 2e-5 relative
 (``cases.GATHER_TOL``); ``residual_sample`` tokens may differ only at a CDF
 step (``cases.cdf_step_ok``).  Contiguous tree attention is held like
 paged tree attention, and a chain mask must equal paged tree attention over
-the same keys laid out in pages, bit for bit.  The SSD scan's y is held
+the same keys laid out in pages, bit for bit (paged tree attention's own
+chain mask matches paged attention within ``cases.PAGED_TOL``, since paged
+attention at bf16 splits its keys on the tensor cores).  The SSD scan's y is held
 against the plain version in float32 within 1e-4 (float32, the scan's band
 in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
 ``cases.SSD_TOL``), its float32 final state within 1e-4.  Decode and flash
 attention (B7, B8) are held like paged attention, at the path shapes and at
-lengths 1, S and past S, Sq < Skv and non-causal.  Int8 decode attention
+lengths 1, S and past S, Sq < Skv and non-causal; B8 in bf16 (the
+tensor-core kernel) at every head dim.  Paged attention in bf16 splits its
+slot axis across blocks: it is also held at the split's edges
+(``cases.PAGED_EDGE_CASES``).  Int8 decode attention
 (B9) is held like B7 over caches made by ``quantize_kv``, returns 0 for a
 row of length 0, and its wrapper refuses each input the kernel does not
 take.  This file imports no jax.
@@ -83,6 +88,40 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, dtype):
         torch.testing.assert_close(got.float(),
                                    pa.paged_attention_plain(*args).float(),
                                    rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", cases.PAGED_EDGE_CASES,
+                         ids=[c[0] for c in cases.PAGED_EDGE_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_at_the_edges_of_the_split(cuda, case, dtype):
+    """bf16 splits the slot axis across blocks and merges in the last one:
+    live slots all in one split, more splits than live slots, rows of
+    length 0 and all-(-1) rows (0), lengths 1, and the serving tables."""
+    _, shape, extra = case
+    args = paged_case(*shape, dtype=dtype, device=cuda, **extra)
+    got = pa.paged_attention_cuda(*args)
+    want = cases.paged_attention_held(*args)
+    torch.cuda.synchronize()
+    rtol, atol = cases.PAGED_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    pt, ln = args[3].cpu(), args[4].cpu()
+    T = args[0].shape[1]
+    dead = ~(pt >= 0).any(1) | (ln + T - 1 <= 0)
+    assert not got[dead].any()
+    again = pa.paged_attention_cuda(*args)      # the tickets were left at 0
+    assert torch.equal(got, again)
+
+
+def test_paged_attention_splits_the_slot_axis(cuda):
+    """The draft step on a serving table runs several splits; the plan reads
+    shapes only."""
+    q, kp, vp, pt, ln = paged_case(8, 1, 32, 4, 64, 16, 512, torch.bfloat16,
+                                   cuda, width=64)
+    plan = pa.split_plan(8, 4, 8, 64, 16, pa.sm_count(q.device))
+    assert plan[0] == 16 and plan[2] > 1
+    before = pa.launches
+    pa.paged_attention_cuda(q, kp, vp, pt, ln)
+    assert pa.launches == before + 1
 
 
 def compare_verify(args):
@@ -221,8 +260,8 @@ TREE_SHAPES = [
 @pytest.mark.parametrize("chain", [False, True])
 def test_paged_tree_attention_kernel_matches_plain(cuda, shape, dtype, chain):
     """Tree masks from ``build_token_tree`` (with B > 2 the last row is
-    retired and gives 0); a chain mask must also equal paged attention at
-    lengths + 1."""
+    retired and gives 0); a chain mask must also match paged attention at
+    lengths + 1 within ``cases.PAGED_TOL``."""
     args = cases.tree_case(*shape, dtype=dtype, device=cuda, chain=chain)
     got = pta.paged_tree_attention_cuda(*args)
     want = cases.tree_attention_held(*args)
@@ -232,9 +271,11 @@ def test_paged_tree_attention_kernel_matches_plain(cuda, shape, dtype, chain):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
     if shape[0] > 2:
         assert torch.all(got[-1] == 0)
-    if chain:
-        q, kp, vp, pt, ln, _ = args
-        assert torch.equal(got, pa.paged_attention_cuda(q, kp, vp, pt, ln + 1))
+    if chain:       # B1 at bf16 splits its keys on the tensor cores: other
+        q, kp, vp, pt, ln, _ = args     # arithmetic than B3's, held to PAGED_TOL
+        torch.testing.assert_close(
+            got.float(), pa.paged_attention_cuda(q, kp, vp, pt, ln + 1).float(),
+            rtol=rtol, atol=atol)
 
 
 def test_paged_tree_attention_refuses_a_65_token_window(cuda):
@@ -554,6 +595,20 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     rtol, atol = cases.PAGED_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("Sq,Skv,causal", [(127, 127, True), (65, 65, True),
+                                           (40, 130, True), (64, 90, False)])
+def test_flash_attention_bf16_at_every_head_dim(cuda, D, Sq, Skv, causal):
+    """The tensor-core kernel at each head dim: two tiles with a ragged
+    last one, a tile edge, Sq < Skv and non-causal."""
+    q, k, v = cases.flash_case(2, Sq, Skv, 8, 2, D, torch.bfloat16, cuda, seed=D)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = cases.flash_attention_held(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    rtol, atol = cases.PAGED_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 

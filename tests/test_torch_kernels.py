@@ -119,6 +119,102 @@ def test_paged_attention_decode_equals_gathered_gqa():
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
 
 
+# (B, KV, rows = T*G, n_slots, ps, SMs): the draft step, the verify window
+# and the prefills of the Llama pair on an H100 (a 1024-token table of
+# 16-key pages), then small tables, odd page sizes and one SM
+SPLIT_SHAPES = [
+    (8, 4, 8, 64, 16, 132), (8, 32, 9, 64, 16, 132), (8, 32, 127, 64, 16, 132),
+    (8, 4, 1016, 64, 16, 132), (1, 1, 1, 1, 16, 132), (2, 2, 4, 7, 3, 132),
+    (3, 1, 16, 40, 1, 132), (1, 2, 17, 100, 32, 132), (4, 4, 8, 64, 16, 1),
+    (1, 1, 1, 513, 16, 132),
+]
+
+
+@pytest.mark.parametrize("B,KV,rows,n_slots,ps,n_sm", SPLIT_SHAPES)
+def test_paged_attention_split_plan_covers_every_slot_once(B, KV, rows, n_slots,
+                                                           ps, n_sm):
+    """The bf16 kernel's split of the slot axis is a function of shapes
+    alone; its ranges cover every slot exactly once, in order, and no split
+    is empty of slots."""
+    plan = tpa.split_plan(B, KV, rows, n_slots, ps, n_sm)
+    assert plan == tpa.split_plan(B, KV, rows, n_slots, ps, n_sm)
+    row_tile, row_tiles, n_split, split_slots = plan
+    assert row_tile == (16 if rows <= 16 else 64)
+    assert row_tiles * row_tile >= rows > (row_tiles - 1) * row_tile
+    ranges = tpa.split_ranges(n_slots, n_split, split_slots)
+    assert len(ranges) == n_split >= 1
+    covered = [s for a, e in ranges for s in range(a, e)]
+    assert covered == list(range(n_slots))
+    assert all(e > a for a, e in ranges)
+    assert n_split == 1 or split_slots * ps >= tpa.MIN_SPLIT_KEYS
+
+
+def _split_emulated(q, k_pool, v_pool, page_table, lengths, n_sm):
+    """The bf16 kernel's partition and merge in plain torch (float32): per
+    split, the partial (m, l, acc) of the keys of its slots that a row
+    sees, empty (m = -inf, l = 0) where it sees none; then the merge the
+    last block makes, in split order, skipping empty partials, 0 for a row
+    that saw no key."""
+    B, T, H, D = q.shape
+    P, ps, KV, _ = k_pool.shape
+    n_slots = page_table.shape[1]
+    G = H // KV
+    _, _, n_split, split_slots = tpa.split_plan(B, KV, T * G, n_slots, ps, n_sm)
+    S = n_slots * ps
+    safe = page_table.clamp(min=0).long()
+    k = k_pool[safe].reshape(B, S, KV, D)
+    v = v_pool[safe].reshape(B, S, KV, D)
+    x = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, G, D), k) / D ** 0.5
+    horizon = lengths.long()[:, None] + torch.arange(T)[None]
+    seen = ((torch.arange(S)[None, None] < horizon[:, :, None])
+            & (page_table >= 0).repeat_interleave(ps, 1)[:, None])
+    parts = []
+    for first, end in tpa.split_ranges(n_slots, n_split, split_slots):
+        keys = slice(first * ps, end * ps)
+        ok = seen[:, None, None, :, keys]
+        xs = torch.where(ok, x[..., keys], -torch.inf)
+        m = xs.amax(-1)
+        p = torch.where(ok, torch.exp(xs - torch.nan_to_num(m, neginf=0.0)[..., None]),
+                        0.0)
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgts,bskd->bkgtd", p, v[:, keys])))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(m == -torch.inf, 0.0, torch.exp(m - M))
+        L = L + w * l
+        A = A + w[..., None] * acc
+    out = torch.where(L[..., None] > 0, A / L.clamp(min=1e-30)[..., None], 0.0)
+    ranges = tpa.split_ranges(n_slots, n_split, split_slots)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D), ranges
+
+
+@pytest.mark.parametrize("B,T,H,KV,D,ctx,width,n_sm,in_first", [
+    (8, 1, 8, 4, 16, 300, 64, 132, False),  # draft step, 1024-token table
+    (4, 9, 4, 4, 16, 400, 64, 132, False),  # verify window
+    (3, 5, 4, 2, 32, 3, 32, 132, True),     # every horizon in the 1st split
+    (3, 1, 4, 2, 16, 40, 12, 1, True),      # one SM: one split
+])
+def test_paged_attention_split_merge_matches_ref(B, T, H, KV, D, ctx, width,
+                                                 n_sm, in_first):
+    """Partials of the split plus their merge equal the plain version (the
+    oracle's function) within the float32 band: all-(-1) rows, rows whose
+    horizon ends inside the first split, splits past every horizon."""
+    q, kp, vp, pt, ln = cases.paged_case(B, T, H, KV, D, 16, ctx,
+                                         torch.float32, "cpu", seed=B + T)
+    assert width >= pt.shape[1]
+    pt = torch.cat([pt, torch.full((B, width - pt.shape[1]), -1,
+                                   dtype=torch.int32)], 1)
+    got, ranges = _split_emulated(q, kp, vp, pt, ln, n_sm)
+    want = tref.paged_attention_ref(q, kp, vp, pt, ln)
+    assert (len(ranges) > 1) == (n_sm > 8)
+    assert (int(ln.max()) + T - 1 <= ranges[0][1] * 16) == in_first
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+    if B > 2:
+        assert not got[-1].any()        # the all-(-1) row sees no key
+
+
 def _fused_inputs(seed, B, L, V, vhat):
     """Valid verification inputs from numpy: drafts drawn from the uploaded
     truncated distribution, so accept and reject both occur."""
