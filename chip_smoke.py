@@ -26,7 +26,11 @@ package.  Phases (none catches a failure):
      where ``u * Z`` lies within rounding of a CDF step (float64 check).
      Contiguous tree attention (B6) is held like paged tree attention, and
      its chain mask must equal paged tree attention over the same keys laid
-     out in pages, bit for bit; the SSD scan (B10, bfloat16 and float32,
+     out in pages, bit for bit; both tree kernels in bfloat16 also on grids
+     small enough to split their key axis (``cases.TREE_SPLIT_CASES``: a
+     length-0 row, an all-(-1) table row, a ragged S of 96, page sizes 8 and
+     16), each bf16 case printed with its split and called twice (the same
+     bits); the SSD scan (B10, bfloat16 and float32,
      with and without an initial state) within ``cases.SSD_TOL``.  Decode
      attention (B7: the TinyLlama draft step, Zamba2's shared-attention step
      at head dim 80, Llama-2-7B's plain decode step, and lengths 1, S and
@@ -87,7 +91,10 @@ package.  Phases (none catches a failure):
      exactly 32 launches and nothing else launched or called plain; then
      each layer held against its plain version within ``cases.PAGED_TOL``
      and against B7 on the bf16 slab, and the bytes of both slabs
- 11. one ``{"kernels": [...]}`` JSON line, the card line, and as the last
+ 11. summary lines: each profiled path's device busy, wall and idle share
+     per round or step; per path, the launches of B3, B6 and B1 per round
+     (counters) beside their profiled calls and device ms per round; then
+     one ``{"kernels": [...]}`` JSON line, the card line, and as the last
      line ``{"ok": true, "device": {...}}``
 
 Each path's counters are set to 0 just before its engine's ``start()`` and
@@ -294,59 +301,77 @@ def check_tree_kernels(torch, cases, pa, pta, gsp, rs):
     returns (tree, softmax, residual) records."""
     tree = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, shape, chain in TREE_CASES:
-        B, J, L = shape[:3]
-        for dtype in (torch.float32, torch.bfloat16):
-            args = cases.tree_case(*shape, dtype=dtype, device="cuda",
-                                   chain=chain)
-            got = pta.paged_tree_attention_cuda(*args).float()
-            want = cases.tree_attention_held(*args)
-            plain = pta.paged_tree_attention_plain(*args).float()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            err_plain = float((got - plain).abs().max())
-            rtol, atol = cases.PAGED_TOL[dtype]
-            close = torch.allclose(got, want, rtol=rtol, atol=atol)
-            err_b1 = None
-            if chain:       # the sequential window: B1 at lengths + 1, held
-                # within PAGED_TOL (B1 at bf16 splits its keys and runs
-                # on the tensor cores: other arithmetic than B3's)
-                q, kp, vp, pt, ln, _ = args
-                b1 = pa.paged_attention_cuda(q, kp, vp, pt, ln + 1).float()
-                err_b1 = float((got - b1).abs().max())
-            n_bytes, n_ops = cases.tree_work(*args)
-            bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
-            sq, sk, sv, smask = cases.tree_sdpa_inputs(*args)
-            rec = {
-                "case": name, "dtype": str(dtype).replace("torch.", ""),
-                "shape": dict(zip("B J L H KV D ps ctx".split(), shape),
-                              T=J * L + 1, chain=chain),
-                "max_abs_err": err, "rtol": rtol, "atol": atol,
-                "max_abs_err_vs_plain_same_dtype": err_plain,
-                "max_abs_err_vs_paged_attention": err_b1,
-                "ms": cases.time_ms(lambda: pta.paged_tree_attention_cuda(*args)),
-                "plain_ms": cases.time_ms(
-                    lambda: pta.paged_tree_attention_plain(*args), iters=10),
-                "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
-                                                         attn_mask=smask)),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bytes": n_bytes, "ops": n_ops,
-            }
-            log(f"paged_tree_attention {name:30s} {rec['dtype']:8s} "
-                f"max|err| {err:.3e} vs f32 plain (rtol {rtol}, atol {atol}), "
-                f"{err_plain:.3e} vs {rec['dtype']} plain"
-                + (f", {err_b1:.3e} vs paged_attention" if chain else "")
-                + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-                f"sdpa {rec['library_ms']:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-            if not close:
-                raise AssertionError(f"paged_tree_attention {name} {dtype}: "
-                                     f"kernel disagrees with plain, max|err| {err}")
-            if chain and not torch.allclose(got, b1, rtol=rtol, atol=atol):
-                raise AssertionError(f"paged_tree_attention {name} {dtype}: a "
-                                     f"chain mask differs from paged_attention "
-                                     f"by {err_b1}")
-            tree.append(rec)
+    runs = [(name, dict(zip("B J L H KV D ps ctx".split(), shape)), chain,
+             dtype, {})
+            for name, shape, chain in TREE_CASES
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [(f"split: {name}, ps {ps}", dict(zip("B J L H KV D".split(),
+                                              shape), ps=ps, ctx=0),
+              False, torch.bfloat16,
+              dict(lengths=lengths, width=keys // ps))
+             for name, shape, lengths, keys in cases.TREE_SPLIT_CASES
+             for ps in (8, 16)]
+    for name, shape, chain, dtype, extra in runs:
+        args = cases.tree_case(*shape.values(), dtype=dtype, device="cuda",
+                               chain=chain, **extra)
+        plan = (pta.split_plan(args[0], args[1], args[3],
+                               pa.sm_count(args[0].device))
+                if dtype == torch.bfloat16 else None)
+        got = pta.paged_tree_attention_cuda(*args).float()
+        want = cases.tree_attention_held(*args)
+        plain = pta.paged_tree_attention_plain(*args).float()
+        again = pta.paged_tree_attention_cuda(*args).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_plain = float((got - plain).abs().max())
+        rtol, atol = cases.PAGED_TOL[dtype]
+        close = torch.allclose(got, want, rtol=rtol, atol=atol)
+        err_b1 = None
+        if chain:       # the sequential window: B1 at lengths + 1, held
+            # within PAGED_TOL (B1 splits its keys by slots, B3 by chunks)
+            q, kp, vp, pt, ln, _ = args
+            b1 = pa.paged_attention_cuda(q, kp, vp, pt, ln + 1).float()
+            err_b1 = float((got - b1).abs().max())
+        n_bytes, n_ops = cases.tree_work(*args)
+        bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
+        sq, sk, sv, smask = cases.tree_sdpa_inputs(*args)
+        rec = {
+            "case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": dict(shape, T=shape["J"] * shape["L"] + 1, chain=chain,
+                          n_slots=args[3].shape[1], lengths=args[4].tolist()),
+            "split_plan": (dict(zip(("row_tile", "row_tiles", "n_split",
+                                     "split_keys"), plan)) if plan else None),
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "max_abs_err_vs_plain_same_dtype": err_plain,
+            "max_abs_err_vs_paged_attention": err_b1,
+            "second_call_equal": bool(torch.equal(got, again)),
+            "ms": cases.time_ms(lambda: pta.paged_tree_attention_cuda(*args)),
+            "plain_ms": cases.time_ms(
+                lambda: pta.paged_tree_attention_plain(*args), iters=10),
+            "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
+                                                     attn_mask=smask)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "ops": n_ops,
+        }
+        log(f"paged_tree_attention {name:30s} {rec['dtype']:8s} "
+            + _split_note(plan)
+            + f"max|err| {err:.3e} vs f32 plain (rtol {rtol}, atol {atol}), "
+            f"{err_plain:.3e} vs {rec['dtype']} plain"
+            + (f", {err_b1:.3e} vs paged_attention" if chain else "")
+            + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+            f"sdpa {rec['library_ms']:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if not close:
+            raise AssertionError(f"paged_tree_attention {name} {dtype}: "
+                                 f"kernel disagrees with plain, max|err| {err}")
+        if not rec["second_call_equal"]:
+            raise AssertionError(f"paged_tree_attention {name} {dtype}: a "
+                                 f"second call gave other bits")
+        if chain and not torch.allclose(got, b1, rtol=rtol, atol=atol):
+            raise AssertionError(f"paged_tree_attention {name} {dtype}: a "
+                                 f"chain mask differs from paged_attention "
+                                 f"by {err_b1}")
+        tree.append(rec)
     try:                        # the kernel's limit is refused, not mis-run
         over = cases.tree_case(1, 8, 8, 4, 2, 16, 16, 40, torch.float32, "cuda")
         pta.paged_tree_attention_cuda(*over)
@@ -424,64 +449,82 @@ def check_tree_kernels(torch, cases, pa, pta, gsp, rs):
     return tree, softmax, residual
 
 
-def check_contiguous_kernels(torch, cases, pta, ta, ssd):
+def check_contiguous_kernels(torch, cases, pa, pta, ta, ssd):
     """Phase 3, the contiguous layout's kernels against their plain
     versions; returns (tree attention, ssd scan) records."""
     tree = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, shape, chain in CONTIGUOUS_TREE_CASES:
-        B, J, L = shape[:3]
-        for dtype in (torch.float32, torch.bfloat16):
-            args = cases.contiguous_tree_case(*shape, dtype=dtype,
-                                              device="cuda", chain=chain)
-            got = ta.tree_attention_cuda(*args).float()
-            want = cases.contiguous_tree_held(*args)
-            plain = ta.tree_attention_plain(*args).float()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            err_plain = float((got - plain).abs().max())
-            rtol, atol = cases.PAGED_TOL[dtype]
-            close = torch.allclose(got, want, rtol=rtol, atol=atol)
-            err_b3 = None
-            if chain:       # the same keys in 16-key pages through B3
-                q, kc, vc, ln, mask = args
-                kp, vp, table = cases.as_pages(kc, vc)
-                b3 = pta.paged_tree_attention_cuda(q, kp, vp, table, ln,
-                                                   mask).float()
-                err_b3 = float((got - b3).abs().max())
-            n_bytes, n_ops = cases.contiguous_tree_work(*args)
-            bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
-            sq, sk, sv, smask = cases.contiguous_tree_sdpa_inputs(*args)
-            rec = {
-                "case": name, "dtype": str(dtype).replace("torch.", ""),
-                "shape": dict(zip("B J L H KV D S ctx".split(), shape),
-                              T=J * L + 1, chain=chain),
-                "max_abs_err": err, "rtol": rtol, "atol": atol,
-                "max_abs_err_vs_plain_same_dtype": err_plain,
-                "max_abs_err_vs_paged_tree_attention": err_b3,
-                "ms": cases.time_ms(lambda: ta.tree_attention_cuda(*args)),
-                "plain_ms": cases.time_ms(lambda: ta.tree_attention_plain(*args),
-                                          iters=10),
-                "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
-                                                         attn_mask=smask)),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bytes": n_bytes, "ops": n_ops,
-            }
-            log(f"tree_attention {name:30s} {rec['dtype']:8s} "
-                f"max|err| {err:.3e} vs f32 plain (rtol {rtol}, atol {atol}), "
-                f"{err_plain:.3e} vs {rec['dtype']} plain"
-                + (f", {err_b3:.3e} vs paged_tree_attention" if chain else "")
-                + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-                f"sdpa {rec['library_ms']:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-            if not close:
-                raise AssertionError(f"tree_attention {name} {dtype}: kernel "
-                                     f"disagrees with plain, max|err| {err}")
-            if chain and err_b3 != 0.0:
-                raise AssertionError(f"tree_attention {name} {dtype}: a chain "
-                                     f"mask differs from paged_tree_attention "
-                                     f"over the same keys by {err_b3}")
-            tree.append(rec)
+    runs = [(name, dict(zip("B J L H KV D S ctx".split(), shape)), chain,
+             dtype, {})
+            for name, shape, chain in CONTIGUOUS_TREE_CASES
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [(f"split: {name}" + (", chain" if chain else ""),
+              dict(zip("B J L H KV D".split(), shape), S=keys, ctx=0), chain,
+              torch.bfloat16,
+              dict(lengths=lengths))
+             for name, shape, lengths, keys in cases.TREE_SPLIT_CASES
+             for chain in (False, True)]
+    for name, shape, chain, dtype, extra in runs:
+        args = cases.contiguous_tree_case(*shape.values(), dtype=dtype,
+                                          device="cuda", chain=chain, **extra)
+        plan = (ta.split_plan(args[0], args[1], pa.sm_count(args[0].device))
+                if dtype == torch.bfloat16 else None)
+        got = ta.tree_attention_cuda(*args).float()
+        want = cases.contiguous_tree_held(*args)
+        plain = ta.tree_attention_plain(*args).float()
+        again = ta.tree_attention_cuda(*args).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_plain = float((got - plain).abs().max())
+        rtol, atol = cases.PAGED_TOL[dtype]
+        close = torch.allclose(got, want, rtol=rtol, atol=atol)
+        err_b3 = None
+        if chain:       # the same keys in 16-key pages through B3
+            q, kc, vc, ln, mask = args
+            kp, vp, table = cases.as_pages(kc, vc)
+            b3 = pta.paged_tree_attention_cuda(q, kp, vp, table, ln,
+                                               mask).float()
+            err_b3 = float((got - b3).abs().max())
+        n_bytes, n_ops = cases.contiguous_tree_work(*args)
+        bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
+        sq, sk, sv, smask = cases.contiguous_tree_sdpa_inputs(*args)
+        rec = {
+            "case": name, "dtype": str(dtype).replace("torch.", ""),
+            "shape": dict(shape, T=shape["J"] * shape["L"] + 1, chain=chain,
+                          lengths=args[3].tolist()),
+            "split_plan": (dict(zip(("row_tile", "row_tiles", "n_split",
+                                     "split_keys"), plan)) if plan else None),
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "max_abs_err_vs_plain_same_dtype": err_plain,
+            "max_abs_err_vs_paged_tree_attention": err_b3,
+            "second_call_equal": bool(torch.equal(got, again)),
+            "ms": cases.time_ms(lambda: ta.tree_attention_cuda(*args)),
+            "plain_ms": cases.time_ms(lambda: ta.tree_attention_plain(*args),
+                                      iters=10),
+            "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
+                                                     attn_mask=smask)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": n_bytes, "ops": n_ops,
+        }
+        log(f"tree_attention {name:30s} {rec['dtype']:8s} "
+            + _split_note(plan)
+            + f"max|err| {err:.3e} vs f32 plain (rtol {rtol}, atol {atol}), "
+            f"{err_plain:.3e} vs {rec['dtype']} plain"
+            + (f", {err_b3:.3e} vs paged_tree_attention" if chain else "")
+            + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+            f"sdpa {rec['library_ms']:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if not close:
+            raise AssertionError(f"tree_attention {name} {dtype}: kernel "
+                                 f"disagrees with plain, max|err| {err}")
+        if not rec["second_call_equal"]:
+            raise AssertionError(f"tree_attention {name} {dtype}: a second "
+                                 f"call gave other bits")
+        if chain and err_b3 != 0.0:
+            raise AssertionError(f"tree_attention {name} {dtype}: a chain "
+                                 f"mask differs from paged_tree_attention "
+                                 f"over the same keys by {err_b3}")
+        tree.append(rec)
     try:                        # the kernel's limit is refused, not mis-run
         over = cases.contiguous_tree_case(1, 8, 8, 4, 2, 16, 128, 40,
                                           torch.float32, "cuda")
@@ -634,6 +677,14 @@ def check_q8_kernel(torch, cases, da, daq):
                 f"{rec['sdpa_dequantized_ms']:.4f} ms")
             q8.append(rec)
     return q8
+
+
+def _split_note(plan):
+    """How a bf16 window kernel cuts its work: row tile x tiles, splits."""
+    if not plan:
+        return ""
+    return (f"(row tile {plan[0]} x {plan[1]}, {plan[2]} split"
+            f"{'s' if plan[2] > 1 else ''} of {plan[3]} keys) ")
 
 
 def _attention_record(torch, cases, name, dtype, shape, got, want, plain,
@@ -970,9 +1021,15 @@ def profile_rounds(torch, step, n, label, unit="round"):
     kernels = [e for e in avgs if dev_us(e) > 0
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels)
+    by_op = {}
+    for e in kernels:
+        op = window_op(e.key)
+        if op:
+            ms, calls = by_op.get(op, (0.0, 0.0))
+            by_op[op] = (ms + dev_us(e) / 1e3 / done, calls + e.count / done)
     PROFILES[label] = {"unit": unit, "device_busy_ms": busy / 1e3 / done,
                        "wall_ms": wall_us / 1e3 / done,
-                       "idle_share": 1 - busy / wall_us}
+                       "idle_share": 1 - busy / wall_us, "window_ops": by_op}
     u = unit
     log(f"{label} profile: {done} {u}s, wall {wall_us / 1e3 / done:.2f} ms/{u} "
         f"(profiler on), device busy {busy / 1e3 / done:.2f} ms/{u}, "
@@ -986,6 +1043,21 @@ def profile_rounds(torch, step, n, label, unit="round"):
         if hit:
             log(f"  host: {name} {hit[0].count / done:.1f} calls/{u}, "
                 f"{hit[0].cpu_time_total / 1e3 / done:.3f} ms/{u}")
+
+
+def window_op(kernel_name):
+    """The op of the port's window attention kernels (B1, B3, B6) that a
+    profiler key names, else None: the bf16 body of
+    ``csrc/window_attention_bf16.cuh`` is told apart by its key locator and
+    mask policy, the float32 kernels by their names."""
+    if "CausalRows" in kernel_name or "::paged_attention_kernel<" in kernel_name:
+        return "paged_attention"
+    if ("PagedKeys<false>" in kernel_name
+            or "::paged_tree_attention_kernel<" in kernel_name):
+        return "paged_tree_attention"
+    if "ContiguousKeys" in kernel_name or "::tree_attention_kernel<" in kernel_name:
+        return "tree_attention"
+    return None
 
 
 def plain_decode_path(torch, ops, cfg, *, K=8, M=128, steps=DECODE_STEPS,
@@ -1168,7 +1240,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     paged, verify = check_kernels(torch, cases, pa, fvs)
     tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
-    ctree, scan = check_contiguous_kernels(torch, cases, pta, ta, ssd)
+    ctree, scan = check_contiguous_kernels(torch, cases, pa, pta, ta, ssd)
     decode, flash = check_decode_kernels(torch, cases, da, fa)
     q8 = check_q8_kernel(torch, cases, da, daq)
     timed = len(cases.spin_overruns)
@@ -1239,12 +1311,21 @@ def main() -> int:
         log(f"summary {label}: device busy {prof['device_busy_ms']:.2f} "
             f"ms/{prof['unit']}, wall {prof['wall_ms']:.2f} ms/{prof['unit']} "
             f"(profiler on), idle share {prof['idle_share']:.3f}")
+    labels = {"j1": "J=1 path", "tree": "tree path",
+              "contiguous tree": "contiguous tree path"}
     for path, (counts, rounds, start) in runs.items():
-        n = counts["paged_attention"]["kernel"] - start["paged_attention"]["kernel"]
-        if n:
-            log(f"summary {path}: paged_attention {n / len(rounds):.1f} "
-                f"launches per round, {start['paged_attention']['kernel']} "
-                f"in start()")
+        prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
+        parts = []
+        for op in ("paged_tree_attention", "tree_attention", "paged_attention"):
+            n = counts[op]["kernel"] - start[op]["kernel"]
+            if n:
+                ms, calls = prof.get(op, (0.0, 0.0))
+                parts.append(f"{op} {n / len(rounds):.1f} launches per round "
+                             f"({start[op]['kernel']} in start()), profiled "
+                             f"{calls:.1f} calls and {ms:.3f} device ms per "
+                             f"round")
+        if parts:
+            log(f"summary {path}: " + "; ".join(parts))
 
     # 11. result lines
     def pick(recs, case, dtype=None):
@@ -1259,11 +1340,15 @@ def main() -> int:
         per_start = {path: start[name]["kernel"]
                      for path, (_, _, start) in runs.items()
                      if start[name]["kernel"]}
+        device_ms = {label: prof["window_ops"][name][0]
+                     for label, prof in PROFILES.items()
+                     if name in prof["window_ops"]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(c[name]["kernel"] for c, _, _ in runs.values()),
                 "launches_per_round": per_round,
                 "launches_per_admission": per_start,
+                "profiled_device_ms_per_round": device_ms or None,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -16,37 +16,44 @@
 // the tree windows of the serving path, T = J*L + 1 <= 64), far below the
 // ~295 flop/byte the tensor cores need.
 //
-// Design.  The structure of paged_attention.cu: grid (B, KV, row tiles), one
-// block per (batch row, kv head, tile of up to 16 of the T*G query rows that
-// share the kv head), the slot loop inside the block, online softmax with
-// m / l / acc in f32, a half-warp per query row.  The (T, T) tree mask is
-// loaded once per block as one 64-bit word per window row (bit t' of word t
-// = win_mask[b, t, t']) in shared memory; each thread keeps its row's word
-// in a register, so the mask test of a key is a shift and an AND.  The TPU
-// kernel resolves slot -> window node with a one-hot MXU matmul to avoid a
-// gather; a bit test needs none of that.  Simple and right first: no
-// wgmma/TMA, no split over the slot axis.
+// Design, bfloat16 (every full-width serving path): the tensor-core kernel
+// body of window_attention_bf16.cuh, B1's, with the page-table locator
+// (``PagedKeys<false>``: a split holds a run of whole 64-key chunks) and the
+// tree mask (``TreeRows``).  The (T, T) mask is loaded once per block as
+// one 64-bit word per window row (bit t' of word t = win_mask[b, t, t'];
+// T <= 64) in shared memory; each lane keeps the words of its two fragment
+// rows and, per 64-key chunk, shifts them into one visibility word over
+// the keys it scores (all ones below lengths[b]), so the mask test of a key
+// is a shift and an AND.  The TPU kernel resolves slot -> window node with a
+// one-hot MXU matmul to avoid a gather; a bit test needs none of that.
+// 16-row tiles when T*G <= 16 (the T = 13 window), 64-row ones up to the
+// T = 49 ceiling; the tile's horizon is lengths[b] + T.  The key axis
+// (n_slots * ps keys) is split only when the grid has fewer blocks than SMs
+// (kernels/paged_attention.py::window_split_plan, a function of shapes that
+// tree_attention.cu's wrapper shares: on pages that lay out a contiguous
+// cache, the two kernels cut at the same keys and walk the same chunks),
+// and the last block of each row tile merges the splits in the same launch.
+//
+// float32 inputs (the configs' default dtype, run at smoke size) stay on
+// the first kernel, unchanged: grid (B, KV, row tiles), one block per (batch
+// row, kv head, tile of up to 16 of the T*G query rows that share the kv
+// head), the slot loop inside the block, online softmax with m / l / acc in
+// f32, a half-warp per query row, FMA dot products on the CUDA cores, the
+// mask words in shared memory as above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "window_attention_bf16.cuh"
+
 namespace {
 
-constexpr int T_MAX = 64;  // one 64-bit mask word per window row
+using window_bf16::T_MAX;  // one 64-bit mask word per window row
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
+template <typename T> __device__ __forceinline__ float to_f(T x) { return x; }
+template <typename T> __device__ __forceinline__ T from_f(float x) { return x; }
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -183,46 +190,42 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k_pool, const void* v_pool,
-                       const int* page_table, const int* lengths,
-                       const uint8_t* win_mask, void* out, int B, int n_t, int H,
-                       int KV, int ps, int n_slots, float scale,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k_pool, v_pool, page_table, lengths, win_mask, out, B, n_t, H, KV, ps, n_slots, scale, stream);
-    case 32: return launch<T, 32>(q, k_pool, v_pool, page_table, lengths, win_mask, out, B, n_t, H, KV, ps, n_slots, scale, stream);
-    case 64: return launch<T, 64>(q, k_pool, v_pool, page_table, lengths, win_mask, out, B, n_t, H, KV, ps, n_slots, scale, stream);
-    case 128: return launch<T, 128>(q, k_pool, v_pool, page_table, lengths, win_mask, out, B, n_t, H, KV, ps, n_slots, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // q (B, T, H, D); pools (P, ps, KV, D); page_table (B, n_slots) int32;
 // lengths (B,) int32 committed counts; win_mask (B, T, T) bytes (0 / 1, a
 // torch.bool tensor); out (B, T, H, D).  All contiguous, q/pools/out of one
-// dtype: 0 = float32, 1 = bfloat16; T <= 64.  Returns the cudaError_t of the
-// launch.
-extern "C" int paged_tree_attention_launch(const void* q, const void* k_pool,
-                                           const void* v_pool, const void* page_table,
-                                           const void* lengths, const void* win_mask,
-                                           void* out, int B, int n_t, int H, int KV,
-                                           int D, int ps, int n_slots, int dtype,
-                                           float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, the bfloat16 ones 16-byte aligned;
+// T <= 64.  For bfloat16, ``row_tile`` (16 or 64), ``n_split`` and
+// ``split_keys`` (a multiple of 64) come from the host's split plan; with
+// n_split > 1, ``part`` holds B * KV * row_tiles * n_split * row_tile *
+// (D + 2) floats and ``tickets`` B * KV * row_tiles zeros (left zero by the
+// kernel).  float32 ignores all five.  Returns the cudaError_t of the launch.
+extern "C" int paged_tree_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* lengths, const void* win_mask,
+    void* out, void* part, void* tickets, int B, int n_t, int H, int KV, int D,
+    int ps, int n_slots, int row_tile, int n_split, int split_keys, int dtype,
+    float scale, void* stream) {
   if (n_t < 1 || n_t > T_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pt = static_cast<const int*>(page_table);
   const int* ln = static_cast<const int*>(lengths);
   const uint8_t* wm = static_cast<const uint8_t*>(win_mask);
-  cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(D, q, k_pool, v_pool, pt, ln, wm, out, B, n_t, H, KV, ps, n_slots, scale, st);
-  } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, q, k_pool, v_pool, pt, ln, wm, out, B, n_t, H, KV, ps, n_slots, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
+    switch (D) {
+      case 16: return static_cast<int>(launch<float, 16>(q, k_pool, v_pool, pt, ln, wm, out, B, n_t, H, KV, ps, n_slots, scale, st));
+      case 32: return static_cast<int>(launch<float, 32>(q, k_pool, v_pool, pt, ln, wm, out, B, n_t, H, KV, ps, n_slots, scale, st));
+      case 64: return static_cast<int>(launch<float, 64>(q, k_pool, v_pool, pt, ln, wm, out, B, n_t, H, KV, ps, n_slots, scale, st));
+      case 128: return static_cast<int>(launch<float, 128>(q, k_pool, v_pool, pt, ln, wm, out, B, n_t, H, KV, ps, n_slots, scale, st));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  return static_cast<int>(err);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const window_bf16::PagedKeys<false> keys{pt, ps, n_slots, nullptr};
+  const window_bf16::TreeRows mask{wm};
+  return static_cast<int>(window_bf16::dispatch(
+      D, row_tile, q, k_pool, v_pool, keys, mask, ln, out,
+      static_cast<float*>(part), static_cast<int*>(tickets), B, n_t, H, KV,
+      n_split, split_keys, scale, st));
 }

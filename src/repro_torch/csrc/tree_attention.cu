@@ -17,37 +17,39 @@
 // tile on the tree windows of the serving path, T = J*L + 1 <= 64), far
 // below the ~295 flop/byte the tensor cores need.
 //
-// Design.  paged_tree_attention.cu with the page walk replaced by a walk of
-// 32-key tiles: grid (B, KV, row tiles), one block per (batch row, kv head,
-// tile of up to 16 of the T*G query rows that share the kv head), online
-// softmax with m / l / acc in f32, a half-warp per query row, 16 keys per
-// step.  The (T, T) mask is one 64-bit word per window row in shared memory;
-// a key is seen iff kpos < lengths[b] or bit kpos - lengths[b] of the row's
-// word is set: a shift and an AND.  Every row sees at least its own window
-// slot, but a row that sees nothing would return 0.  Simple and right
-// first: no wgmma/TMA, no split over the key axis.
+// Design, bfloat16 (every full-width serving path): paged_tree_attention.cu's
+// kernel, the tensor-core body of window_attention_bf16.cuh with the
+// contiguous locator (``ContiguousKeys``: key pos of row b is cache row
+// (b, pos)) in place of the page table, and the same tree mask
+// (``TreeRows``: one 64-bit ancestor word per window row, shifted per 64-key
+// chunk into the visibility of the keys a lane scores).  The key axis (S
+// keys) is split only when the grid has fewer blocks than SMs, by the plan
+// paged_tree_attention.cu's wrapper uses over n_slots * ps keys
+// (kernels/paged_attention.py::window_split_plan): the same keys laid out in
+// pages (n_slots * ps == S) are cut at the same positions and walked in the
+// same chunks, so a chain mask gives that kernel's answer bit for bit.
+//
+// float32 inputs (the configs' default dtype, run at smoke size) stay on
+// the first kernel, unchanged: a walk of 32-key tiles, grid (B, KV, row
+// tiles), one block per (batch row, kv head, tile of up to 16 of the T*G
+// query rows that share the kv head), online softmax with m / l / acc in
+// f32, a half-warp per query row, 16 keys per step, FMA dot products on the
+// CUDA cores, the mask words in shared memory as above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "window_attention_bf16.cuh"
+
 namespace {
 
-constexpr int T_MAX = 64;    // one 64-bit mask word per window row
+using window_bf16::T_MAX;    // one 64-bit mask word per window row
 constexpr int KTILE = 32;    // keys staged in shared memory per step
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
+template <typename T> __device__ __forceinline__ float to_f(T x) { return x; }
+template <typename T> __device__ __forceinline__ T from_f(float x) { return x; }
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -181,42 +183,40 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k_cache,
-                       const void* v_cache, const int* lengths,
-                       const uint8_t* win_mask, void* out, int B, int n_t, int H,
-                       int KV, int S, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k_cache, v_cache, lengths, win_mask, out, B, n_t, H, KV, S, scale, stream);
-    case 32: return launch<T, 32>(q, k_cache, v_cache, lengths, win_mask, out, B, n_t, H, KV, S, scale, stream);
-    case 64: return launch<T, 64>(q, k_cache, v_cache, lengths, win_mask, out, B, n_t, H, KV, S, scale, stream);
-    case 128: return launch<T, 128>(q, k_cache, v_cache, lengths, win_mask, out, B, n_t, H, KV, S, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // q (B, T, H, D); caches (B, S, KV, D); lengths (B,) int32 committed counts;
 // win_mask (B, T, T) bytes (0 / 1, a torch.bool tensor); out (B, T, H, D).
-// All contiguous, q/caches/out of one dtype: 0 = float32, 1 = bfloat16;
-// T <= 64.  Returns the cudaError_t of the launch.
+// All contiguous, q/caches/out of one dtype: 0 = float32, 1 = bfloat16, the
+// bfloat16 ones 16-byte aligned; T <= 64.  For bfloat16, ``row_tile``,
+// ``n_split``, ``split_keys``, ``part`` and ``tickets`` as in
+// paged_tree_attention_launch; float32 ignores them.  Returns the
+// cudaError_t of the launch.
 extern "C" int tree_attention_launch(const void* q, const void* k_cache,
                                      const void* v_cache, const void* lengths,
-                                     const void* win_mask, void* out, int B,
-                                     int n_t, int H, int KV, int D, int S,
-                                     int dtype, float scale, void* stream) {
+                                     const void* win_mask, void* out, void* part,
+                                     void* tickets, int B, int n_t, int H,
+                                     int KV, int D, int S, int row_tile,
+                                     int n_split, int split_keys, int dtype,
+                                     float scale, void* stream) {
   if (n_t < 1 || n_t > T_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lengths);
   const uint8_t* wm = static_cast<const uint8_t*>(win_mask);
-  cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(D, q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st);
-  } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st);
-  } else {
-    err = cudaErrorInvalidValue;
+    switch (D) {
+      case 16: return static_cast<int>(launch<float, 16>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
+      case 32: return static_cast<int>(launch<float, 32>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
+      case 64: return static_cast<int>(launch<float, 64>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
+      case 128: return static_cast<int>(launch<float, 128>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  return static_cast<int>(err);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const window_bf16::ContiguousKeys keys{S, 0};
+  const window_bf16::TreeRows mask{wm};
+  return static_cast<int>(window_bf16::dispatch(
+      D, row_tile, q, k_cache, v_cache, keys, mask, ln, out,
+      static_cast<float*>(part), static_cast<int*>(tickets), B, n_t, H, KV,
+      n_split, split_keys, scale, st));
 }

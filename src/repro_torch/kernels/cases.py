@@ -316,20 +316,36 @@ def tree_mask(B: int, J: int, L: int, seed: int = 0) -> torch.Tensor:
 
 
 def tree_case(B, J, L, H, KV, D, ps, ctx, dtype, device, seed=0, holes=True,
-              chain=False):
+              chain=False, lengths=None, width=None):
     """Tree-window inputs (q, k_pool, v_pool, page_table, lengths, win_mask)
     of a T = J*L+1 window: the pools and table of ``paged_case`` at T (each
-    row maps its committed ``lengths`` plus the window), lengths the
+    row maps its committed ``lengths`` plus the window; ``lengths`` gives
+    the rows' committed counts, ``width`` the table's slots), lengths the
     committed count, the mask from ``tree_mask`` (or lower-triangular with
     ``chain``, where the op equals paged attention at lengths + 1)."""
     T = J * L + 1
-    q, kp, vp, pt, ln = paged_case(B, T, H, KV, D, ps, ctx, dtype, device,
-                                   seed=seed, holes=holes)
+    q, kp, vp, pt, ln = paged_case(
+        B, T, H, KV, D, ps, ctx, dtype, device, seed=seed, holes=holes,
+        lengths=None if lengths is None else [n + 1 for n in lengths],
+        width=width)
     if chain:
         mask = torch.tril(torch.ones((T, T), dtype=torch.bool)).expand(B, T, T)
     else:
         mask = tree_mask(B, J, L, seed=seed)
     return q, kp, vp, pt, ln - 1, mask.contiguous().to(device)
+
+
+# tree windows on grids of fewer blocks than SMs, so that the bf16 B3 and
+# B6 split their key axis: name, (B, J, L, H, KV, D), the rows' committed
+# lengths, and the keys (B3: ``width = keys // ps`` slots of ``tree_case``;
+# B6: ``S``); with B > 2 the last row of B3's table is all -1 (it gives 0)
+TREE_SPLIT_CASES = [
+    ("B=3 KV=4 T=13, length 0, retired row", (3, 2, 6, 4, 4, 64), [0, 100, 50],
+     256),
+    ("B=2 KV=4 T=13", (2, 2, 6, 4, 4, 64), [30, 200], 256),
+    ("T=64 KV=1 G=4", (1, 7, 9, 4, 1, 128), [60], 192),
+    ("ragged keys 96, G=4 on 64-row tiles", (2, 2, 6, 8, 2, 64), [0, 83], 96),
+]
 
 
 def tree_attention_held(q, k_pool, v_pool, page_table, lengths, win_mask):
@@ -485,18 +501,22 @@ def compare_residual(got, want, p, q, u) -> dict:
 # ---------------------------------------------------------------------------
 
 def contiguous_tree_case(B, J, L, H, KV, D, S, ctx, dtype, device, seed=0,
-                         chain=False):
+                         chain=False, lengths=None):
     """Tree-window inputs (q, k_cache, v_cache, lengths, win_mask) of a
     T = J*L+1 window over (B, S, KV, D) caches: committed lengths of
-    ctx/2..ctx tokens (at most S - T, so the window fits), the mask from
-    ``tree_mask`` (or lower-triangular with ``chain``)."""
+    ctx/2..ctx tokens (at most S - T, so the window fits) or the rows'
+    ``lengths``, the mask from ``tree_mask`` (or lower-triangular with
+    ``chain``)."""
     T = J * L + 1
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, T, H, D), generator=g)
     kc = torch.randn((B, S, KV, D), generator=g)
     vc = torch.randn((B, S, KV, D), generator=g)
-    lengths = torch.randint(max(0, ctx // 2), min(ctx, S - T) + 1, (B,),
-                            generator=g)
+    if lengths is None:
+        lengths = torch.randint(max(0, ctx // 2), min(ctx, S - T) + 1, (B,),
+                                generator=g)
+    else:
+        lengths = torch.tensor(lengths)
     if chain:
         mask = torch.tril(torch.ones((T, T), dtype=torch.bool)).expand(B, T, T)
     else:

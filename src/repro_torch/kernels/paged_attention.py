@@ -13,7 +13,10 @@ At bfloat16 the kernel splits the page-table slots across blocks:
 ``split_plan`` picks the row tile and the number of splits from shapes
 alone (never from ``lengths``, which would cost a host sync), and the
 last block of each tile to finish merges the splits' partials in the same
-launch, through a scratch buffer this module keeps per device.
+launch, through a scratch buffer this module keeps per device.  The tree
+kernels (``paged_tree_attention``, ``tree_attention``) run the same kernel
+body and split their key axis by ``window_split_plan``, in whole 64-key
+chunks; they share this module's scratch and SM count.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from . import build
 from .ref import paged_attention_ref as paged_attention_plain
 
 __all__ = ["paged_attention_cuda", "paged_attention_plain", "launches",
-           "sm_count", "split_plan", "split_ranges"]
+           "scratch_for", "sm_count", "split_plan", "split_ranges",
+           "window_split_plan", "window_split_ranges"]
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_PAGE_SIZE = 32
@@ -35,14 +39,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the bf16 kernel's split of the slot axis (``split_plan``): a grid of fewer
 # than SPLIT_BELOW blocks per SM is split to ~BLOCKS_PER_SM blocks per SM,
-# each split at least MIN_SPLIT_KEYS keys of the table (one 64-key chunk of
-# the kernel's walk).  On the H100 a grid that already fills the SMs (the
-# verify window, 256 blocks) only lost to a split: the walk is bound by the
-# bytes it reads, and a split adds partial writes and a merge
-# (``tools/paged_split_sweep.py``).
+# each split at least MIN_SPLIT_KEYS keys of the table (one chunk of the
+# kernel's walk, CHUNK_KEYS logical key positions: ``KC`` in
+# ``csrc/window_attention_bf16.cuh``).  On the H100 a grid that already
+# fills the SMs (the verify window, 256 blocks) only lost to a split: the
+# walk is bound by the bytes it reads, and a split adds partial writes and
+# a merge (``tools/paged_split_sweep.py``).
 BLOCKS_PER_SM = 2
 SPLIT_BELOW = 1.0
-MIN_SPLIT_KEYS = 64
+CHUNK_KEYS = 64
+MIN_SPLIT_KEYS = CHUNK_KEYS
 
 # kernel launches made through ``paged_attention_cuda``
 launches = 0
@@ -84,6 +90,38 @@ def split_ranges(n_slots: int, n_split: int,
             for s in range(n_split)]
 
 
+def window_split_plan(B: int, KV: int, rows: int, n_keys: int,
+                      n_sm: int) -> tuple[int, int, int, int]:
+    """``(row_tile, row_tiles, n_split, split_keys)`` of the bf16 tree
+    kernels for ``rows`` = T * G query rows per kv head over ``n_keys`` key
+    positions (``n_slots * ps`` through a page table, ``S`` in a contiguous
+    cache): the row tile of ``split_plan``; then, if the grid has fewer than
+    ``SPLIT_BELOW`` blocks per SM, enough splits that it has
+    ~``BLOCKS_PER_SM``, each a run of whole ``CHUNK_KEYS``-key chunks.
+    Split s holds keys ``[s * split_keys, min((s + 1) * split_keys,
+    n_keys))`` (``window_split_ranges``): every key once, no split without
+    a key, and the same cuts for any two layouts of the same ``n_keys``."""
+    row_tile = 16 if rows <= 16 else 64
+    row_tiles = -(-rows // row_tile)
+    blocks = B * KV * row_tiles
+    n_chunks = -(-n_keys // CHUNK_KEYS)
+    want = 1
+    if blocks < SPLIT_BELOW * n_sm:
+        want = -(-BLOCKS_PER_SM * n_sm // blocks)
+    n = max(1, min(want, n_chunks))
+    split_chunks = -(-n_chunks // n)
+    n_split = max(1, -(-n_chunks // split_chunks))
+    return row_tile, row_tiles, n_split, split_chunks * CHUNK_KEYS
+
+
+def window_split_ranges(n_keys: int, n_split: int,
+                        split_keys: int) -> list[tuple[int, int]]:
+    """The key range ``[first, end)`` of each split, as the tree kernels
+    walk it (before clipping to the tile's horizon)."""
+    return [(s * split_keys, min(s * split_keys + split_keys, n_keys))
+            for s in range(n_split)]
+
+
 def sm_count(device: torch.device) -> int:
     """The SMs of a CUDA device, read once and cached."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
@@ -93,8 +131,12 @@ def sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def _scratch_for(device: torch.device, n_floats: int,
-                 n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+def scratch_for(device: torch.device, n_floats: int,
+                n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-device split scratch of the bf16 window kernels (B1, B3, B6):
+    at least ``n_floats`` float32 partials and ``n_tickets`` int32 tickets,
+    grown as needed.  Every launch leaves its tickets at 0, and launches on
+    one stream use the buffers in turn."""
     part, tickets = _scratch.get(device.index, (None, None))
     if part is None or part.numel() < n_floats:
         part = torch.empty(n_floats, dtype=torch.float32, device=device)
@@ -161,8 +203,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                 B, KV, T * (H // KV), n_slots, ps, sm_count(q.device))
             if n_split > 1:
                 n_part = B * KV * row_tiles * n_split * row_tile
-                part, tickets = _scratch_for(q.device, n_part * (D + 2),
-                                             B * KV * row_tiles)
+                part, tickets = scratch_for(q.device, n_part * (D + 2),
+                                            B * KV * row_tiles)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                        page_table.data_ptr(), lengths.data_ptr(),

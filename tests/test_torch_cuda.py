@@ -19,16 +19,18 @@ like paged attention; ``gather_softmax_prob`` within 2e-5 relative
 step (``cases.cdf_step_ok``).  Contiguous tree attention is held like
 paged tree attention, and a chain mask must equal paged tree attention over
 the same keys laid out in pages, bit for bit (paged tree attention's own
-chain mask matches paged attention within ``cases.PAGED_TOL``, since paged
-attention at bf16 splits its keys on the tensor cores).  The SSD scan's y is held
-against the plain version in float32 within 1e-4 (float32, the scan's band
-in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
+chain mask matches paged attention within ``cases.PAGED_TOL``: at bf16 the
+two split small grids differently, by slots and by 64-key chunks).  The SSD
+scan's y is held against the plain version in float32 within 1e-4 (float32,
+the scan's band in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
 ``cases.SSD_TOL``), its float32 final state within 1e-4.  Decode and flash
 attention (B7, B8) are held like paged attention, at the path shapes and at
 lengths 1, S and past S, Sq < Skv and non-causal; B8 in bf16 (the
 tensor-core kernel) at every head dim.  Paged attention in bf16 splits its
 slot axis across blocks: it is also held at the split's edges
-(``cases.PAGED_EDGE_CASES``).  Int8 decode attention
+(``cases.PAGED_EDGE_CASES``); so do paged and contiguous tree attention in
+bf16, on grids small enough to split (``cases.TREE_SPLIT_CASES``), where a
+second call must give the same bits.  Int8 decode attention
 (B9) is held like B7 over caches made by ``quantize_kv``, returns 0 for a
 row of length 0, and its wrapper refuses each input the kernel does not
 take.  This file imports no jax.
@@ -271,8 +273,8 @@ def test_paged_tree_attention_kernel_matches_plain(cuda, shape, dtype, chain):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
     if shape[0] > 2:
         assert torch.all(got[-1] == 0)
-    if chain:       # B1 at bf16 splits its keys on the tensor cores: other
-        q, kp, vp, pt, ln, _ = args     # arithmetic than B3's, held to PAGED_TOL
+    if chain:       # B1 at bf16 splits by slots, B3 by 64-key chunks: on a
+        q, kp, vp, pt, ln, _ = args     # small grid other partials, so PAGED_TOL
         torch.testing.assert_close(
             got.float(), pa.paged_attention_cuda(q, kp, vp, pt, ln + 1).float(),
             rtol=rtol, atol=atol)
@@ -286,6 +288,34 @@ def test_paged_tree_attention_refuses_a_65_token_window(cuda):
         pta.paged_tree_attention_cuda(*cases.tree_case(
             1, 2, 2, 4, 2, 16, 16, 40, torch.float32, cuda)[:5],
             torch.ones((1, 5, 5), dtype=torch.uint8, device=cuda))
+
+
+def _check_split_case(fn, args, held, plan):
+    """A split bf16 tree kernel within ``PAGED_TOL`` of its float32 plain
+    version; a second call (tickets left at 0, the same merge order) gives
+    the same bits."""
+    assert plan[2] > 1, plan
+    got = fn(*args)
+    want = held(*args)
+    torch.cuda.synchronize()
+    rtol, atol = cases.PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    assert torch.equal(got, fn(*args))
+    return got
+
+
+@pytest.mark.parametrize("case", cases.TREE_SPLIT_CASES,
+                         ids=[c[0] for c in cases.TREE_SPLIT_CASES])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_tree_attention_splits_its_keys(cuda, case, ps):
+    _, (B, J, L, H, KV, D), lengths, n_keys = case
+    args = cases.tree_case(B, J, L, H, KV, D, ps, 0, torch.bfloat16, cuda,
+                           lengths=lengths, width=n_keys // ps)
+    plan = pta.split_plan(args[0], args[1], args[3], pa.sm_count(cuda))
+    got = _check_split_case(pta.paged_tree_attention_cuda, args,
+                            cases.tree_attention_held, plan)
+    if B > 2:
+        assert not (args[3][-1] >= 0).any() and not got[-1].any()
 
 
 @pytest.mark.parametrize("N,V", [(5, 300), (96, 32000), (384, 32000),
@@ -419,6 +449,43 @@ def test_tree_attention_refuses_a_65_token_window(cuda):
         ta.tree_attention_cuda(q, kc, vc, ln, mask.to(torch.uint8))
     with pytest.raises(ValueError, match="int32"):
         ta.tree_attention_cuda(q, kc, vc, ln.long(), mask)
+
+
+@pytest.mark.parametrize("case", cases.TREE_SPLIT_CASES,
+                         ids=[c[0] for c in cases.TREE_SPLIT_CASES])
+@pytest.mark.parametrize("chain", [False, True])
+def test_tree_attention_splits_its_keys(cuda, case, chain):
+    """B6 on the grids of ``cases.TREE_SPLIT_CASES`` over an S = keys cache; a
+    chain mask equals B3 over the same keys in 16-key pages, bit for bit,
+    the two cut at the same keys."""
+    _, (B, J, L, H, KV, D), lengths, S = case
+    args = cases.contiguous_tree_case(B, J, L, H, KV, D, S, 0, torch.bfloat16,
+                                      cuda, chain=chain, lengths=lengths)
+    plan = ta.split_plan(args[0], args[1], pa.sm_count(cuda))
+    got = _check_split_case(ta.tree_attention_cuda, args,
+                            cases.contiguous_tree_held, plan)
+    if chain:
+        q, kc, vc, ln, mask = args
+        kp, vp, table = cases.as_pages(kc, vc)
+        assert pta.split_plan(q, kp, table, pa.sm_count(cuda)) == plan
+        assert torch.equal(got, pta.paged_tree_attention_cuda(
+            q, kp, vp, table, ln, mask))
+
+
+def test_tree_kernels_refuse_misaligned_bf16(cuda):
+    """The bf16 tensor-core kernels stage 16-byte rows: a tensor that does
+    not start on 16 bytes is refused before anything is allocated."""
+    q, kp, vp, pt, ln, mask = cases.tree_case(2, 2, 2, 4, 2, 16, 16, 40,
+                                              torch.bfloat16, cuda)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    q_off = off.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pta.paged_tree_attention_cuda(q_off, kp, vp, pt, ln, mask)
+    q, kc, vc, ln, mask = cases.contiguous_tree_case(2, 2, 2, 4, 2, 16, 64, 40,
+                                                     torch.bfloat16, cuda)
+    q_off = off.view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ta.tree_attention_cuda(q_off, kc, vc, ln, mask)
 
 
 SSD_SHAPES = [

@@ -149,28 +149,20 @@ def test_paged_attention_split_plan_covers_every_slot_once(B, KV, rows, n_slots,
     assert n_split == 1 or split_slots * ps >= tpa.MIN_SPLIT_KEYS
 
 
-def _split_emulated(q, k_pool, v_pool, page_table, lengths, n_sm):
-    """The bf16 kernel's partition and merge in plain torch (float32): per
-    split, the partial (m, l, acc) of the keys of its slots that a row
-    sees, empty (m = -inf, l = 0) where it sees none; then the merge the
-    last block makes, in split order, skipping empty partials, 0 for a row
-    that saw no key."""
+def _merge_splits(q, k, v, seen, key_ranges):
+    """The bf16 window kernels' partition and merge in plain torch
+    (float32), over keys k, v (B, S, KV, D) of which query row t of batch b
+    sees ``seen[b, t]``: per key range, the partial (m, l, acc) of the keys
+    a row sees, empty (m = -inf, l = 0) where it sees none; then the merge
+    the last block makes, in range order, skipping empty partials, 0 for a
+    row that saw no key."""
     B, T, H, D = q.shape
-    P, ps, KV, _ = k_pool.shape
-    n_slots = page_table.shape[1]
+    KV = k.shape[2]
     G = H // KV
-    _, _, n_split, split_slots = tpa.split_plan(B, KV, T * G, n_slots, ps, n_sm)
-    S = n_slots * ps
-    safe = page_table.clamp(min=0).long()
-    k = k_pool[safe].reshape(B, S, KV, D)
-    v = v_pool[safe].reshape(B, S, KV, D)
     x = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, G, D), k) / D ** 0.5
-    horizon = lengths.long()[:, None] + torch.arange(T)[None]
-    seen = ((torch.arange(S)[None, None] < horizon[:, :, None])
-            & (page_table >= 0).repeat_interleave(ps, 1)[:, None])
     parts = []
-    for first, end in tpa.split_ranges(n_slots, n_split, split_slots):
-        keys = slice(first * ps, end * ps)
+    for first, end in key_ranges:
+        keys = slice(first, end)
         ok = seen[:, None, None, :, keys]
         xs = torch.where(ok, x[..., keys], -torch.inf)
         m = xs.amax(-1)
@@ -186,8 +178,27 @@ def _split_emulated(q, k_pool, v_pool, page_table, lengths, n_sm):
         L = L + w * l
         A = A + w[..., None] * acc
     out = torch.where(L[..., None] > 0, A / L.clamp(min=1e-30)[..., None], 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
+
+
+def _split_emulated(q, k_pool, v_pool, page_table, lengths, n_sm):
+    """B1's bf16 kernel in plain torch: its slot ranges as key ranges of
+    ``_merge_splits``, a row t seeing the mapped keys below lengths + t."""
+    B, T, H, D = q.shape
+    P, ps, KV, _ = k_pool.shape
+    n_slots = page_table.shape[1]
+    _, _, n_split, split_slots = tpa.split_plan(B, KV, T * (H // KV), n_slots,
+                                                ps, n_sm)
+    S = n_slots * ps
+    safe = page_table.clamp(min=0).long()
+    k = k_pool[safe].reshape(B, S, KV, D)
+    v = v_pool[safe].reshape(B, S, KV, D)
+    horizon = lengths.long()[:, None] + torch.arange(T)[None]
+    seen = ((torch.arange(S)[None, None] < horizon[:, :, None])
+            & (page_table >= 0).repeat_interleave(ps, 1)[:, None])
     ranges = tpa.split_ranges(n_slots, n_split, split_slots)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D), ranges
+    out = _merge_splits(q, k, v, seen, [(a * ps, e * ps) for a, e in ranges])
+    return out, ranges
 
 
 @pytest.mark.parametrize("B,T,H,KV,D,ctx,width,n_sm,in_first", [
@@ -213,6 +224,147 @@ def test_paged_attention_split_merge_matches_ref(B, T, H, KV, D, ctx, width,
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
     if B > 2:
         assert not got[-1].any()        # the all-(-1) row sees no key
+
+
+# (B, KV, rows = T*G, n_keys, SMs): the Llama-2-7B tree windows on an H100
+# (T = 13 and the T = 49 ceiling over a 1024-key table or cache), the card
+# tests' small grids, ragged key counts, one chunk, one SM
+WINDOW_SPLIT_SHAPES = [
+    (8, 32, 13, 1024, 132), (8, 32, 49, 1024, 132), (2, 4, 13, 128, 132),
+    (1, 1, 256, 128, 132), (2, 4, 13, 96, 132), (3, 2, 20, 1000, 132),
+    (1, 1, 5, 64, 132), (1, 1, 5, 40, 132), (4, 4, 8, 1024, 1),
+    (1, 1, 1, 8192, 132),
+]
+
+
+@pytest.mark.parametrize("B,KV,rows,n_keys,n_sm", WINDOW_SPLIT_SHAPES)
+def test_window_split_plan_covers_every_key_once(B, KV, rows, n_keys, n_sm):
+    """The tree kernels' split of the key axis is a function of shapes
+    alone; its ranges are runs of whole 64-key chunks that cover every key
+    exactly once, in order, none empty; only a grid of fewer blocks than
+    SMs splits."""
+    plan = tpa.window_split_plan(B, KV, rows, n_keys, n_sm)
+    assert plan == tpa.window_split_plan(B, KV, rows, n_keys, n_sm)
+    row_tile, row_tiles, n_split, split_keys = plan
+    assert row_tile == (16 if rows <= 16 else 64)
+    assert row_tiles * row_tile >= rows > (row_tiles - 1) * row_tile
+    assert split_keys % tpa.CHUNK_KEYS == 0
+    ranges = tpa.window_split_ranges(n_keys, n_split, split_keys)
+    assert len(ranges) == n_split >= 1
+    assert [k for a, e in ranges for k in range(a, e)] == list(range(n_keys))
+    assert all(e > a for a, e in ranges)
+    blocks = B * KV * row_tiles
+    assert (n_split > 1) == (blocks < n_sm and n_keys > tpa.CHUNK_KEYS)
+    assert n_split == 1 or blocks * n_split <= 2 * tpa.BLOCKS_PER_SM * n_sm
+
+
+@pytest.mark.parametrize("S,ps", [(64, 16), (96, 16), (128, 8), (1024, 16),
+                                  (1000, 8), (40, 8)])
+@pytest.mark.parametrize("B,T,H,KV", [(2, 13, 4, 4), (1, 64, 4, 1),
+                                      (8, 13, 32, 32), (3, 5, 8, 2)])
+def test_tree_split_plans_agree_on_as_pages_layouts(S, ps, B, T, H, KV):
+    """B3 over the pages of ``cases.as_pages`` (n_slots * ps == S) and B6
+    over the cache cut their keys at the same positions, so they walk the
+    same chunks: what keeps B6's chain mask bit-equal to B3's."""
+    q = torch.zeros((B, T, H, 16))
+    kc = torch.zeros((B, S, KV, 16))
+    kp, _, table = cases.as_pages(kc, kc, ps)
+    for n_sm in (1, 8, 132):
+        paged = tpta.split_plan(q, kp, table, n_sm)
+        contiguous = tta.split_plan(q, kc, n_sm)
+        assert paged == contiguous
+        assert (tpa.window_split_ranges(table.shape[1] * ps, *paged[2:])
+                == tpa.window_split_ranges(S, *contiguous[2:]))
+
+
+def _tree_split_inputs(seed, B, J, L, H, KV, D, S, ps, lengths):
+    """Numpy inputs of a T = J*L+1 tree window over a (B, S, KV, D) cache
+    and the same keys scattered over pages of ``ps`` (one more batch row,
+    retired: its table all -1), with the ancestor masks of ``tree_mask``."""
+    rng = np.random.default_rng(seed)
+    T = J * L + 1
+    q = rng.standard_normal((B + 1, T, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B + 1, S, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((B + 1, S, KV, D)).astype(np.float32)
+    n_slots = S // ps
+    pages = rng.permutation((B + 1) * n_slots + 3)
+    kp = rng.standard_normal((pages.size, ps, KV, D)).astype(np.float32)
+    vp = rng.standard_normal((pages.size, ps, KV, D)).astype(np.float32)
+    pt = np.full((B + 1, n_slots), -1, np.int32)
+    for b in range(B):
+        pt[b] = pages[b * n_slots:(b + 1) * n_slots]
+        kp[pt[b]] = kc[b].reshape(n_slots, ps, KV, D)
+        vp[pt[b]] = vc[b].reshape(n_slots, ps, KV, D)
+    ln = np.array(list(lengths) + [ps + 1], np.int32)
+    mask = cases.tree_mask(B + 1, J, L, seed=seed).numpy()
+    return q, kc, vc, kp, vp, pt, ln, mask
+
+
+def _tree_seen(lengths, mask, S):
+    """(B, T, S) bool: the keys each tree row sees in a contiguous cache."""
+    ln, wm = torch.as_tensor(lengths).long(), torch.as_tensor(mask)
+    B, T = wm.shape[:2]
+    w = torch.arange(S)[None] - ln[:, None]
+    allow = wm.gather(2, w.clamp(0, T - 1)[:, None].expand(B, T, S))
+    return ((w < 0)[:, None] | (allow & ((w >= 0) & (w < T))[:, None]))
+
+
+# name, (B, J, L, H, KV, D, S, ps), lengths, SMs: the window of row 0 in
+# the last split while row 1's splits past its window are empty; G > 1 on
+# 64-row tiles; T = 64 across a split boundary; one SM (no split)
+TREE_SPLIT_CASES = [
+    ("window in the last split", (2, 2, 2, 4, 2, 16, 256, 16), [250, 10], 132),
+    ("G > 1, 64-row tiles", (2, 2, 6, 8, 2, 32, 192, 8), [100, 37], 132),
+    ("T = 64 across a split", (1, 7, 9, 4, 1, 32, 128, 16), [60], 132),
+    ("one SM: one split", (2, 2, 3, 4, 2, 16, 128, 16), [90, 3], 1),
+]
+
+
+@pytest.mark.parametrize("case", TREE_SPLIT_CASES,
+                         ids=[c[0] for c in TREE_SPLIT_CASES])
+def test_tree_split_merge_matches_ref(case):
+    """The bf16 tree kernels' split partials plus their merge, emulated in
+    plain torch, equal the plain B3 and B6 (and the JAX oracles on the rows
+    they agree on) within the float32 band: rows whose window lies in the
+    last split, empty splits, an all-(-1) row (0), G > 1."""
+    name, (B, J, L, H, KV, D, S, ps), lengths, n_sm = case
+    q, kc, vc, kp, vp, pt, ln, mask = _tree_split_inputs(
+        len(name), B, J, L, H, KV, D, S, ps, lengths)
+    T = J * L + 1
+    tq, tkc, tvc, tkp, tvp, tpt, tln, tmask = map(
+        torch.from_numpy, (q, kc, vc, kp, vp, pt, ln, mask))
+    _, _, n_split, split_keys = tta.split_plan(tq, tkc, n_sm)
+    assert (n_split, split_keys) == tpta.split_plan(tq, tkp, tpt, n_sm)[2:]
+    assert (n_split > 1) == (n_sm > 1)
+    ranges = tpa.window_split_ranges(S, n_split, split_keys)
+    seen = _tree_seen(ln, mask, S)
+    # B6 over the cache
+    got = _merge_splits(tq, tkc, tvc, seen, ranges)
+    np.testing.assert_allclose(
+        got.numpy(), tref.tree_attention_ref(tq, tkc, tvc, tln, tmask).numpy(),
+        **F32_TOL)
+    want = np.asarray(jref.tree_attention_ref(
+        *(jnp.asarray(a) for a in (q, kc, vc, ln, mask))))
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    # B3 through the pages: the same answer, the retired row 0
+    mapped = (tpt >= 0).repeat_interleave(ps, 1)[:, None]
+    safe = tpt.clamp(min=0).long()
+    got_p = _merge_splits(tq, tkp[safe].reshape(B + 1, S, KV, D),
+                          tvp[safe].reshape(B + 1, S, KV, D), seen & mapped,
+                          ranges)
+    np.testing.assert_allclose(
+        got_p.numpy(),
+        tref.paged_tree_attention_ref(tq, tkp, tvp, tpt, tln, tmask).numpy(),
+        **F32_TOL)
+    want_p = np.asarray(jref.paged_tree_attention_ref(
+        *(jnp.asarray(a) for a in (q, kp, vp, pt, ln, mask))))
+    np.testing.assert_allclose(got_p[:B].numpy(), want_p[:B], **F32_TOL)
+    np.testing.assert_allclose(got_p[:B].numpy(), got[:B].numpy(), **F32_TOL)
+    assert not got_p[B].any()           # the all-(-1) row sees no key
+    if name == "window in the last split":
+        first_last = ranges[-1][0]
+        assert first_last <= lengths[0] and lengths[0] + T <= S
+        assert not seen[1, :, first_last:].any()     # row 1: empty splits
 
 
 def _fused_inputs(seed, B, L, V, vhat):
