@@ -30,12 +30,19 @@ package.  Phases (none catches a failure):
      small enough to split their key axis (``cases.TREE_SPLIT_CASES``: a
      length-0 row, an all-(-1) table row, a ragged S of 96, page sizes 8 and
      16), each bf16 case printed with its split and called twice (the same
-     bits); the SSD scan (B10, bfloat16 and float32,
-     with and without an initial state) within ``cases.SSD_TOL``.  Decode
-     attention (B7: the TinyLlama draft step, Zamba2's shared-attention step
-     at head dim 80, Llama-2-7B's plain decode step, and lengths 1, S and
-     past S) and flash attention (B8: the Llama-2-7B, TinyLlama and Zamba2
-     prefills, Sq < Skv, non-causal) are held like paged attention.  Int8
+     bits); the SSD scan (B10, bfloat16 and float32, with and without an
+     initial state, and at b = 1, where bf16 cuts the head dim across
+     blocks) within ``cases.SSD_TOL`` and ``cases.SSD_STATE_TOL``, each bf16
+     case printed with its head-dim slices and called twice (the same
+     bits).  Decode attention (B7: the TinyLlama draft step, Zamba2's
+     shared-attention step at head dim 80, Llama-2-7B's plain decode step,
+     lengths 1, S and past S, and a split grid with a row of length 0, which
+     must give 0) and flash attention (B8: the Llama-2-7B, TinyLlama and
+     Zamba2 prefills, Sq < Skv, non-causal) are held like paged attention;
+     each bf16 B7 case is printed with its split, called twice (the same
+     bits) and, at B6's head dims, must equal B6 with a one-row window and
+     mask [[1]] at lengths - 1 bit for bit on every row with 1 <= lengths
+     <= S.  Int8
      decode attention (B9) over caches made by ``quantize_kv`` from the
      same normal K/V (Llama-2-7B, TinyLlama and Zamba2 steps, the JAX kernel
      bench's shape, lengths 1, S, past S and 0) is held like B7 on its live
@@ -77,8 +84,10 @@ package.  Phases (none catches a failure):
      128-token prompts (an SSM target refuses frozen rows); ssd_scan
      launches once per Mamba-2 layer (54) and flash_attention once per
      shared-block invocation and draft layer (9 + 22) in ``start()``'s
-     prefill; per round fused_verify_sample and decode_attention, no plain
-     call, exactly one host sync; then 3 profiled rounds
+     prefill, which runs under torch.profiler to print the device ms of
+     the 54 ssd_scan launches per admission; per round fused_verify_sample
+     and decode_attention, no plain call, exactly one host sync; then 3
+     profiled rounds
   9. the plain decode path at full width: ``ServingEngine`` with Llama-2-7B
      in bfloat16 (max_len 1024), 8 prompts of 128 tokens, 64 sampled decode
      steps; flash_attention 32 launches in ``start()``, decode_attention 32
@@ -92,10 +101,11 @@ package.  Phases (none catches a failure):
      each layer held against its plain version within ``cases.PAGED_TOL``
      and against B7 on the bf16 slab, and the bytes of both slabs
  11. summary lines: each profiled path's device busy, wall and idle share
-     per round or step; per path, the launches of B3, B6 and B1 per round
-     (counters) beside their profiled calls and device ms per round; then
-     one ``{"kernels": [...]}`` JSON line, the card line, and as the last
-     line ``{"ok": true, "device": {...}}``
+     per round or step; per path, the launches of B3, B6, B1 and B7 per
+     round or step (counters) beside their profiled calls and device ms;
+     then one ``{"kernels": [...]}`` JSON line (each kernel with the design
+     its bf16 route moved to, if any), the card line, and as the last line
+     ``{"ok": true, "device": {...}}``
 
 Each path's counters are set to 0 just before its engine's ``start()`` and
 read after its last checked round or step; ``launches`` in the kernels line
@@ -156,6 +166,8 @@ SSD_CASES = [
     ("zamba2-2.7b prefill", (8, 128, 80, 64, 1, 64, 64), False),
     ("zamba2-2.7b prefill, initial state", (8, 128, 80, 64, 1, 64, 64), True),
     ("mamba2-130m heads", (8, 128, 24, 64, 1, 128, 64), False),
+    ("zamba2-2.7b prefill, one row (p cut)", (1, 128, 80, 64, 1, 64, 64),
+     False),
 ]
 SSD_HEADLINE = ("zamba2-2.7b prefill", "bfloat16")
 DECODE_CASES = [
@@ -164,6 +176,7 @@ DECODE_CASES = [
     ("zamba2-2.7b shared-attention step", (8, 32, 32, 80, 1024, (128, 160))),
     ("llama2-7b plain decode", (8, 32, 32, 128, 1024, (127, 190))),
     ("lengths 1, S, past S", (4, 32, 4, 64, 1024, [1, 1024, 1100, 700])),
+    ("split, a length-0 row", (2, 32, 4, 128, 1024, [0, 900])),
 ]
 DECODE_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
 FLASH_CASES = [
@@ -187,6 +200,7 @@ Q8_HEADLINE = ("llama2-7b plain decode", "bfloat16")
 Q8_BUDGET = 0.05    # int8 against exact K/V, tests/test_kernels.py:475
 DECODE_STEPS = 64
 PROFILES = {}   # label -> device busy, wall and idle share per round or step
+START_PROFILES = {}   # (label, op) -> device ms and calls in a profiled start()
 
 
 def log(*args):
@@ -538,11 +552,16 @@ def check_contiguous_kernels(torch, cases, pa, pta, ta, ssd):
         for dtype in (torch.bfloat16, torch.float32):
             x, dt, A, B, C, st = cases.ssd_case(b, s, h, p, g, n, dtype, "cuda",
                                                 init=init)
+            plan = (ssd.split_plan(b, h, p, pa.sm_count(x.device))
+                    if dtype == torch.bfloat16 else None)
             y, fs = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
                                       initial_state=st)
             y_want, fs_want = cases.ssd_scan_held(x, dt, A, B, C, chunk, st)
             y_plain, _ = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                                             initial_state=st)
+            again = (ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                                       initial_state=st)
+                     if dtype == torch.bfloat16 else (y, fs))
             torch.cuda.synchronize()
             err = float((y.float() - y_want).abs().max())
             err_state = float((fs - fs_want).abs().max())
@@ -562,6 +581,10 @@ def check_contiguous_kernels(torch, cases, pa, pta, ta, ssd):
                 "max_abs_err_state": err_state, "state_rtol": srtol,
                 "state_atol": satol,
                 "max_abs_err_vs_plain_same_dtype": err_plain,
+                "p_split": (dict(p_block=plan[0], n_slices=plan[1])
+                            if plan else None),
+                "second_call_equal": bool(torch.equal(y, again[0])
+                                          and torch.equal(fs, again[1])),
                 "ms": cases.time_ms(lambda: ssd.ssd_scan_cuda(
                     x, dt, A, B, C, chunk=chunk, initial_state=st)),
                 "plain_ms": cases.time_ms(lambda: ssd.ssd_scan_plain(
@@ -569,7 +592,10 @@ def check_contiguous_kernels(torch, cases, pa, pta, ta, ssd):
                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": n_bytes, "ops": n_ops,
             }
-            log(f"ssd_scan {name:36s} {rec['dtype']:8s} max|err| y {err:.3e} "
+            log(f"ssd_scan {name:36s} {rec['dtype']:8s} "
+                + (f"(p in {plan[1]} slice{'s' if plan[1] > 1 else ''} of "
+                   f"{plan[0]}) " if plan else "")
+                + f"max|err| y {err:.3e} "
                 f"(rtol {rtol}, atol {atol}) state {err_state:.3e} vs f32 plain, "
                 f"y {err_plain:.3e} vs {rec['dtype']} plain  kernel "
                 f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  library "
@@ -577,35 +603,73 @@ def check_contiguous_kernels(torch, cases, pa, pta, ta, ssd):
             if not close:
                 raise AssertionError(f"ssd_scan {name} {dtype}: kernel disagrees "
                                      f"with plain, y {err}, state {err_state}")
+            if not rec["second_call_equal"]:
+                raise AssertionError(f"ssd_scan {name} {dtype}: a second call "
+                                     f"gave other bits")
             scan.append(rec)
     return tree, scan
 
 
-def check_decode_kernels(torch, cases, da, fa):
+def check_decode_kernels(torch, cases, pa, ta, da, fa):
     """Phase 3, decode attention (B7) and flash attention (B8) against
-    their plain versions at the path shapes and the edge cases; returns
-    (decode, flash) records."""
+    their plain versions at the path shapes and the edge cases; bf16 B7
+    also called twice (the same bits) and, at B6's head dims, against B6
+    with a one-row window at lengths - 1 (the same bits on every row with
+    1 <= lengths <= S); returns (decode, flash) records."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     decode, flash = [], []
     for name, shape in DECODE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = cases.decode_case(*shape, dtype=dtype, device="cuda")
-            got = da.decode_attention_cuda(*args).float()
+            q, kc, vc, ln = args
+            bf16 = dtype == torch.bfloat16
+            plan = (da.split_plan(q, kc, pa.sm_count(q.device)) if bf16
+                    else None)
+            out = da.decode_attention_cuda(*args)
+            got = out.float()
             want = cases.decode_attention_held(*args)
             plain = da.decode_attention_plain(*args).float()
+            again = da.decode_attention_cuda(*args) if bf16 else out
+            b6_rows = (ln >= 1) & (ln <= kc.shape[1])
+            b6_equal = None
+            if bf16 and q.shape[-1] in ta.HEAD_DIMS:
+                b6 = ta.tree_attention_cuda(
+                    q[:, None].contiguous(), kc, vc, ln - 1,
+                    torch.ones((q.shape[0], 1, 1), dtype=torch.bool,
+                               device=q.device))[:, 0]
+                b6_equal = bool(torch.equal(out[b6_rows], b6[b6_rows]))
             torch.cuda.synchronize()
+            live = ln > 0
+            if got[~live].any():
+                raise AssertionError(f"decode_attention {name} {dtype}: a row "
+                                     f"of length 0 is not 0")
             n_bytes, n_ops = cases.decode_work(*args)
             sq, sk, sv, kw = cases.decode_sdpa_inputs(*args)
             rec = _attention_record(
                 torch, cases, name, dtype, dict(zip("B H KV D S".split(),
                                                     shape[:5]),
-                                                lengths=args[3].tolist()),
-                got, want, plain, n_bytes, n_ops,
+                                                lengths=ln.tolist()),
+                got[live], want[live], plain[live], n_bytes, n_ops,
                 lambda: da.decode_attention_cuda(*args),
                 lambda: da.decode_attention_plain(*args),
                 lambda: sdpa(sq, sk, sv, **kw))
+            rec.update(
+                split_plan=(dict(zip(("row_tile", "row_tiles", "n_split",
+                                      "split_keys"), plan)) if plan else None),
+                dead_rows=int((~live).sum()),
+                second_call_equal=bool(torch.equal(out, again)),
+                equal_to_tree_attention_one_row=b6_equal)
             log(f"decode_attention {name:34s} {rec['dtype']:8s} "
-                + _attention_line(rec))
+                + _split_note(plan) + _attention_line(rec)
+                + ("" if b6_equal is None else
+                   f"; = B6 at one row, lengths - 1, bit for bit on "
+                   f"{int(b6_rows.sum())} rows: {b6_equal}"))
+            if not rec["second_call_equal"]:
+                raise AssertionError(f"decode_attention {name} {dtype}: a "
+                                     f"second call gave other bits")
+            if b6_equal is False:
+                raise AssertionError(f"decode_attention {name} {dtype}: "
+                                     f"differs from B6 at one row")
             decode.append(rec)
     for name, (B, Sq, Skv, H, KV, D, causal) in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -882,11 +946,13 @@ def _to(torch, tree, device):
 def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
               scheme_params, path_ops, syncs, min_width, n_rounds,
               cache_kind="paged", start_ops=None, device="cuda", K=8, M=128,
-              NEW=64, max_len=1024):
+              NEW=64, max_len=1024, profile_start=()):
     """Phases 5-8: one serving path at full width, through the cell.
     Counters are set to 0 just before ``start()``; ``start_ops`` maps the
     kernels the prefill must launch to their launch count, ``path_ops`` are
     the kernels every round must launch; every plain counter must stay 0.
+    With ``profile_start`` (op names), ``start()`` runs under torch.profiler
+    and the device ms of each named op's kernels in it is printed.
     Returns (launch counts, per-round records, launch counts of start)."""
     from repro_torch.api import (
         CellConfig,
@@ -909,10 +975,28 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
     torch.cuda.synchronize()
     ops.reset_counts()
     t1 = time.perf_counter()
-    state = engine.start(prompts)
+    if profile_start:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = engine.start(prompts)
+            torch.cuda.synchronize()
+    else:
+        state = engine.start(prompts)
     torch.cuda.synchronize()
     at_start = ops.counts()
     started = {k: v["kernel"] for k, v in at_start.items() if v["kernel"]}
+    for op in profile_start:
+        hit = [e for e in prof.key_averages() if op in e.key
+               and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        ms = sum(_dev_us(e) for e in hit) / 1e3
+        calls = sum(e.count for e in hit)
+        START_PROFILES[(label, op)] = {"device_ms": ms, "calls": calls,
+                                       "launches": at_start[op]["kernel"]}
+        log(f"{label}: {op} in start(): {at_start[op]['kernel']} launches, "
+            f"profiled {calls} kernel calls taking {ms:.3f} device ms per "
+            f"admission (profiler on)")
     for op, n in (start_ops or {}).items():
         assert at_start[op]["kernel"] == n, (op, n, at_start)
     assert all(c["plain"] == 0 for c in at_start.values()), at_start
@@ -991,6 +1075,12 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
     return counts, rounds, at_start
 
 
+def _dev_us(e):
+    """Device microseconds of a profiler average (its own time)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_rounds(torch, step, n, label, unit="round"):
     """Phase 5b: ``n`` more rounds (or steps) of the same session under
     torch.profiler (after the checked ones, so their counts are not mixed
@@ -1013,11 +1103,7 @@ def profile_rounds(torch, step, n, label, unit="round"):
         log(f"{label} profile: the session had drained; nothing profiled")
         return
     avgs = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
+    dev_us = _dev_us
     kernels = [e for e in avgs if dev_us(e) > 0
                and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(dev_us(e) for e in kernels)
@@ -1046,11 +1132,16 @@ def profile_rounds(torch, step, n, label, unit="round"):
 
 
 def window_op(kernel_name):
-    """The op of the port's window attention kernels (B1, B3, B6) that a
+    """The op of the port's window attention kernels (B1, B3, B6, B7) that a
     profiler key names, else None: the bf16 body of
     ``csrc/window_attention_bf16.cuh`` is told apart by its key locator and
     mask policy, the float32 kernels by their names."""
-    if "CausalRows" in kernel_name or "::paged_attention_kernel<" in kernel_name:
+    if "CausalRows" in kernel_name:
+        return ("decode_attention" if "ContiguousKeys" in kernel_name
+                else "paged_attention")
+    if "::decode_attention_kernel<" in kernel_name:
+        return "decode_attention"
+    if "::paged_attention_kernel<" in kernel_name:
         return "paged_attention"
     if ("PagedKeys<false>" in kernel_name
             or "::paged_tree_attention_kernel<" in kernel_name):
@@ -1241,7 +1332,7 @@ def main() -> int:
     paged, verify = check_kernels(torch, cases, pa, fvs)
     tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
     ctree, scan = check_contiguous_kernels(torch, cases, pa, pta, ta, ssd)
-    decode, flash = check_decode_kernels(torch, cases, da, fa)
+    decode, flash = check_decode_kernels(torch, cases, pa, ta, da, fa)
     q8 = check_q8_kernel(torch, cases, da, daq)
     timed = len(cases.spin_overruns)
     log(f"timing spin check: {sum(1 for f, _, _ in cases.spin_overruns if f)} "
@@ -1300,7 +1391,7 @@ def main() -> int:
         start_ops={"ssd_scan": zamba.num_layers,
                    "flash_attention": (zamba.num_layers // zamba.hybrid_group
                                        + pair[1].num_layers)},
-        NEW=10 ** 6)
+        NEW=10 ** 6, profile_start=("ssd_scan",))
     free("hybrid")
     runs["plain decode"], eng, state = plain_decode_path(torch, ops, pair[0])
     runs["int8 decode"] = int8_path(torch, ops, cases, da, daq, eng, state)
@@ -1312,11 +1403,13 @@ def main() -> int:
             f"ms/{prof['unit']}, wall {prof['wall_ms']:.2f} ms/{prof['unit']} "
             f"(profiler on), idle share {prof['idle_share']:.3f}")
     labels = {"j1": "J=1 path", "tree": "tree path",
-              "contiguous tree": "contiguous tree path"}
+              "contiguous tree": "contiguous tree path",
+              "hybrid": "hybrid path", "plain decode": "plain decode path"}
     for path, (counts, rounds, start) in runs.items():
         prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
         parts = []
-        for op in ("paged_tree_attention", "tree_attention", "paged_attention"):
+        for op in ("paged_tree_attention", "tree_attention", "paged_attention",
+                   "decode_attention"):
             n = counts[op]["kernel"] - start[op]["kernel"]
             if n:
                 ms, calls = prof.get(op, (0.0, 0.0))
@@ -1332,7 +1425,9 @@ def main() -> int:
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))
 
-    def entry(name, source, replaces, rec, recs):
+    def entry(name, source, replaces, rec, recs, redesigned=None):
+        """One kernel of the line; ``redesigned`` names what its bf16 route
+        runs when that is a later design than the first port."""
         per_round = {path: (counts[name]["kernel"] - start[name]["kernel"])
                      / len(rounds)
                      for path, (counts, rounds, start) in runs.items()
@@ -1343,12 +1438,15 @@ def main() -> int:
         device_ms = {label: prof["window_ops"][name][0]
                      for label, prof in PROFILES.items()
                      if name in prof["window_ops"]}
+        start_ms = {label: v["device_ms"]
+                    for (label, op), v in START_PROFILES.items() if op == name}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
+                "replaces": replaces, "redesigned": redesigned,
                 "launches": sum(c[name]["kernel"] for c, _, _ in runs.values()),
                 "launches_per_round": per_round,
                 "launches_per_admission": per_start,
                 "profiled_device_ms_per_round": device_ms or None,
+                "profiled_device_ms_per_admission": start_ms or None,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1360,12 +1458,13 @@ def main() -> int:
     kernels = [
         entry("paged_attention", f"{csrc}/paged_attention.cu",
               f"{tpu}/paged_attention.py:114", pick(paged, *PAGED_HEADLINE),
-              paged),
+              paged, redesigned="bf16: mma.sync tiles, split slot axis"),
         entry("fused_verify_sample", f"{csrc}/fused_verify_sample.cu",
               f"{tpu}/fused_verify_sample.py:181", pick(verify, VERIFY_HEADLINE),
               verify),
         entry("paged_tree_attention", f"{csrc}/paged_tree_attention.cu",
-              f"{tpu}/tree_attention.py:256", pick(tree, *TREE_HEADLINE), tree),
+              f"{tpu}/tree_attention.py:256", pick(tree, *TREE_HEADLINE), tree,
+              redesigned="bf16: the window body, tree mask, split key axis"),
         entry("gather_softmax_prob", f"{csrc}/gather_softmax_prob.cu",
               f"{tpu}/gather_softmax_prob.py:75",
               pick(softmax, SOFTMAX_HEADLINE), softmax),
@@ -1374,15 +1473,20 @@ def main() -> int:
               residual),
         entry("tree_attention", f"{csrc}/tree_attention.cu",
               f"{tpu}/tree_attention.py:145",
-              pick(ctree, *CONTIGUOUS_TREE_HEADLINE), ctree),
+              pick(ctree, *CONTIGUOUS_TREE_HEADLINE), ctree,
+              redesigned="bf16: the window body over contiguous keys, tree "
+              "mask, split key axis"),
         entry("ssd_scan", f"{csrc}/ssd_scan.cu", f"{tpu}/ssd_scan.py:93",
-              pick(scan, *SSD_HEADLINE), scan),
+              pick(scan, *SSD_HEADLINE), scan,
+              redesigned="bf16: mma.sync chunk products, f32 operands as "
+              "bf16 hi + lo, p cut at small batch"),
         entry("decode_attention", f"{csrc}/decode_attention.cu",
               f"{tpu}/decode_attention.py:81", pick(decode, *DECODE_HEADLINE),
-              decode),
+              decode,
+              redesigned="bf16: the window body at one row, split key axis"),
         entry("flash_attention", f"{csrc}/flash_attention.cu",
               f"{tpu}/flash_attention.py:95", pick(flash, *FLASH_HEADLINE),
-              flash),
+              flash, redesigned="bf16: mma.sync tiles, cp.async ring"),
         entry("decode_attention_q8", f"{csrc}/decode_attention.cu",
               f"{tpu}/decode_attention.py:168", pick(q8, *Q8_HEADLINE), q8),
     ]

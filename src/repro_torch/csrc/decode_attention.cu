@@ -15,20 +15,31 @@
 // query heads share a kv head: 8 at TinyLlama, 1 at Llama-2-7B), far below
 // the ~295 flop/byte the tensor cores need.
 //
-// Design.  One block per (kv head, batch row) holds that head's G query
-// rows (G <= 16) and walks tiles of 64 keys up to min(lengths[b], S): the
-// Pallas kernel's sequential S-tile grid axis becomes the loop inside the
-// block, and the walk stops at the row's length, as its pl.when does.  Per
-// tile the 128 threads stage K and V as float32 in shared memory (rows
-// padded to D + 4 floats: 16-byte aligned, float4 reads free of bank
-// conflicts), compute the G x 64 scores one key per thread, update m / l per
-// row (a warp per row) and accumulate P V with each thread owning four
-// output columns of a few rows.  Head dims are template parameters, so 80
-// (Zamba2) works like the powers of two.  About 80 KB of dynamic shared
-// memory at D = 128.  Simple and right first: only B * KV blocks run (32 at
-// the TinyLlama draft step), no split over the key axis, no tensor cores.
+// Design, bfloat16 (every full-width serving path): the tensor-core body of
+// window_attention_bf16.cuh that B1, B3 and B6 run, with B6's contiguous key
+// locator (``ContiguousKeys``) and B1's horizon mask (``CausalRows``) at a
+// window of T = 1: the 16-row tile holds the G <= 16 query heads of one kv
+// head, each row's horizon is lengths[b] (clipped at S by the locator), and
+// the key axis is cut in runs of 64-key chunks across blocks when the grid
+// (B x KV blocks: 32 at the TinyLlama draft step) has fewer blocks than SMs,
+// by the plan of kernels/paged_attention.py::window_split_plan over S keys,
+// merged by the last block of each tile in the same launch.  The same keys
+// through B6 with a one-row window and mask [[1]] at lengths[b] - 1 are cut
+// and walked alike, so the two agree bit for bit.  Its own dispatch adds the
+// head dims 80 (Zamba2) and 96 without instantiating them for B1/B3/B6.
 //
-// The same kernel, instantiated on an int8 cache type, replaces
+// float32 inputs (the configs' default dtype, run at smoke size) stay on the
+// first kernel: one block per (kv head, batch row) holds that head's G query
+// rows and walks tiles of 64 keys up to min(lengths[b], S): the Pallas
+// kernel's sequential S-tile grid axis becomes the loop inside the block,
+// and the walk stops at the row's length, as its pl.when does.  Per tile the
+// 128 threads stage K and V as float32 in shared memory (rows padded to
+// D + 4 floats: 16-byte aligned, float4 reads free of bank conflicts),
+// compute the G x 64 scores one key per thread, update m / l per row (a warp
+// per row) and accumulate P V with each thread owning four output columns of
+// a few rows.  About 80 KB of dynamic shared memory at D = 128.
+//
+// The same first kernel, instantiated on an int8 cache type, replaces
 // decode_attention.py::decode_attention_q8_pallas (the pl.pallas_call at
 // decode_attention.py:168): caches (B, S, KV, D) int8 with float32 scales
 // (B, KV), one per (batch row, kv head).  The dequant is fused into the tile
@@ -36,7 +47,7 @@
 // four codes (one char4) of K and of V, converts them to float32 and
 // multiplies them by the block's k_scale / v_scale (one float each, read
 // once per block) before staging them.  Everything after the load is shared
-// with the floating-point instantiations.  An int8 row is D bytes (16 to 128, always a multiple of 16), so a
+// with the float32 instantiation.  An int8 row is D bytes (16 to 128, always a multiple of 16), so a
 // key costs half its bfloat16 bytes and the bound halves.  The int8 tensor
 // cores are no help while q is floating point.
 
@@ -46,6 +57,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "window_attention_bf16.cuh"
 
 namespace {
 
@@ -316,16 +329,58 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_cache,
 #undef DECODE_CASE
 }
 
+// The bfloat16 route: window_bf16::launch of a 16-row tile over contiguous
+// keys with per-row horizons, at every head dim B7 takes.
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k_cache, const void* v_cache,
+                        const int* lengths, void* out, float* part,
+                        int* tickets, int B, int H, int KV, int S, int n_split,
+                        int split_keys, float scale, cudaStream_t stream) {
+  return window_bf16::launch<D, 1>(
+      q, k_cache, v_cache, window_bf16::ContiguousKeys{S, 0},
+      window_bf16::CausalRows{}, lengths, out, part, tickets, B, 1, H, KV,
+      n_split, split_keys, scale, stream);
+}
+
+cudaError_t dispatch_bf16(int D, const void* q, const void* k_cache,
+                          const void* v_cache, const int* lengths, void* out,
+                          float* part, int* tickets, int B, int H, int KV,
+                          int S, int n_split, int split_keys, float scale,
+                          cudaStream_t stream) {
+  if (n_split < 1 || split_keys < 1 ||
+      (n_split > 1 && (part == nullptr || tickets == nullptr)))
+    return cudaErrorInvalidValue;
+#define DECODE_BF16_CASE(DIM)                                                 \
+  case DIM:                                                                   \
+    return launch_bf16<DIM>(q, k_cache, v_cache, lengths, out, part, tickets,  \
+                            B, H, KV, S, n_split, split_keys, scale, stream);
+  switch (D) {
+    DECODE_BF16_CASE(16)
+    DECODE_BF16_CASE(32)
+    DECODE_BF16_CASE(64)
+    DECODE_BF16_CASE(80)
+    DECODE_BF16_CASE(96)
+    DECODE_BF16_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef DECODE_BF16_CASE
+}
+
 }  // namespace
 
 // q (B, H, D); caches (B, S, KV, D); lengths (B,) int32; out (B, H, D).  All
 // contiguous and 16-byte aligned, q/caches/out of one dtype: 0 = float32,
-// 1 = bfloat16; H / KV <= 16.  Returns the cudaError_t of the launch.
+// 1 = bfloat16; H / KV <= 16.  For bfloat16, ``n_split`` and ``split_keys``
+// come from the host's split plan (window_split_plan over S keys); with
+// n_split > 1, ``part`` holds B * KV * n_split * 16 * (D + 2) floats and
+// ``tickets`` B * KV zeros (left zero); float32 ignores the four.  Returns
+// the cudaError_t of the launch.
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache, const void* lengths,
-                                       void* out, int B, int H, int KV, int D,
-                                       int S, int dtype, float scale,
-                                       void* stream) {
+                                       void* out, void* part, void* tickets,
+                                       int B, int H, int KV, int D, int S,
+                                       int n_split, int split_keys, int dtype,
+                                       float scale, void* stream) {
   if (KV < 1 || H % KV != 0 || H / KV > G_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -335,9 +390,9 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
     err = dispatch_d<float, float>(D, q, k_cache, v_cache, nullptr, nullptr,
                                    ln, out, B, H, KV, S, scale, st);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(
-        D, q, k_cache, v_cache, nullptr, nullptr, ln, out, B, H, KV, S, scale,
-        st);
+    err = dispatch_bf16(D, q, k_cache, v_cache, ln, out,
+                        static_cast<float*>(part), static_cast<int*>(tickets),
+                        B, H, KV, S, n_split, split_keys, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 // Window attention at bfloat16 on Hopper's tensor cores (sm_90a): the one
-// kernel body of paged_attention.cu (B1), paged_tree_attention.cu (B3) and
-// tree_attention.cu (B6).
+// kernel body of paged_attention.cu (B1), paged_tree_attention.cu (B3),
+// tree_attention.cu (B6) and decode_attention.cu (B7, a one-row window over
+// contiguous keys with B1's horizon, through its own dispatch of head dims).
 //
 // A window of T query rows of batch row b attends keys of logical positions
 // [0, n_keys).  Two template parameters make the three kernels:

@@ -662,6 +662,16 @@ def decode_case(B, H, KV, D, S, lengths, dtype, device, seed=0):
             ln.to(device, torch.int32))
 
 
+# name, (B, H, KV, D, S), lengths: bf16 decode attention (B7) on grids of
+# fewer blocks than SMs, which split the key axis: a row of length 0 beside
+# a long one, G = 8 at D = 80, lengths past S at D = 96
+DECODE_SPLIT_CASES = [
+    ("a length-0 row, D=128", (2, 32, 4, 128, 1024), [0, 900]),
+    ("G=8 at D=80", (2, 8, 1, 80, 320), [300, 65]),
+    ("lengths past S at D=96", (2, 8, 2, 96, 200), [250, 3]),
+]
+
+
 def decode_attention_held(q, k_cache, v_cache, lengths):
     """The plain version in float32 on the same inputs (as
     ``paged_attention_held``)."""

@@ -10,6 +10,13 @@ per-token steps and ``ServingEngine.decode_step``.
 ``decode_attention_plain`` is the same function in plain PyTorch
 (``ref.decode_attention_ref``); ``ops.decode_attention`` picks between the
 two by the device of the tensors.
+
+At bfloat16 the kernel is the window body of B1, B3 and B6 at a one-row
+window: it splits the key axis (``S`` keys) by
+``paged_attention.window_split_plan`` (``split_plan``), from the shapes
+alone, through the scratch ``paged_attention`` keeps per device, so it cuts
+the keys where ``tree_attention`` would for a one-row window over the same
+cache.
 """
 
 from __future__ import annotations
@@ -20,9 +27,11 @@ import math
 import torch
 
 from . import build
+from .paged_attention import scratch_for, sm_count, window_split_plan
 from .ref import decode_attention_ref as decode_attention_plain
 
-__all__ = ["decode_attention_cuda", "decode_attention_plain", "launches"]
+__all__ = ["decode_attention_cuda", "decode_attention_plain", "launches",
+           "split_plan"]
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 MAX_GROUP = 16      # query heads per kv head held in one block
@@ -39,10 +48,20 @@ def _entry():
     if _fn is None:
         fn = build.library("decode_attention").decode_attention_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
+
+
+def split_plan(q: torch.Tensor, k_cache: torch.Tensor,
+               n_sm: int) -> tuple[int, int, int, int]:
+    """``(row_tile, row_tiles, n_split, split_keys)`` of the bf16 kernel:
+    ``window_split_plan`` over the cache's ``S`` keys for the G = H / KV
+    query heads of a kv head (one 16-row tile), from the shapes alone."""
+    B, H, _ = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    return window_split_plan(B, KV, H // KV, S, n_sm)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -83,11 +102,22 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    n_split, split_keys = 1, 1
+    part = tickets = None
     with torch.cuda.device(q.device):
+        if q.dtype == torch.bfloat16:
+            row_tile, _, n_split, split_keys = split_plan(q, k_cache,
+                                                          sm_count(q.device))
+            if n_split > 1:
+                part, tickets = scratch_for(
+                    q.device, B * KV * n_split * row_tile * (D + 2), B * KV)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                       lengths.data_ptr(), out.data_ptr(), B, H, KV, D, S,
-                       _DTYPES[q.dtype], 1.0 / math.sqrt(D), stream)
+                       lengths.data_ptr(), out.data_ptr(),
+                       None if part is None else part.data_ptr(),
+                       None if tickets is None else tickets.data_ptr(),
+                       B, H, KV, D, S, n_split, split_keys, _DTYPES[q.dtype],
+                       1.0 / math.sqrt(D), stream)
     build.check(err, "decode_attention")
     launches += 1
     return out

@@ -14,9 +14,10 @@ At bfloat16 the kernel splits the page-table slots across blocks:
 alone (never from ``lengths``, which would cost a host sync), and the
 last block of each tile to finish merges the splits' partials in the same
 launch, through a scratch buffer this module keeps per device.  The tree
-kernels (``paged_tree_attention``, ``tree_attention``) run the same kernel
-body and split their key axis by ``window_split_plan``, in whole 64-key
-chunks; they share this module's scratch and SM count.
+kernels (``paged_tree_attention``, ``tree_attention``) and bf16
+``decode_attention`` run the same kernel body and split their key axis by
+``window_split_plan``, in whole 64-key chunks; they share this module's
+scratch and SM count.
 """
 
 from __future__ import annotations
@@ -133,7 +134,8 @@ def sm_count(device: torch.device) -> int:
 
 def scratch_for(device: torch.device, n_floats: int,
                 n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The per-device split scratch of the bf16 window kernels (B1, B3, B6):
+    """The per-device split scratch of the bf16 window kernels (B1, B3, B6,
+    B7):
     at least ``n_floats`` float32 partials and ``n_tickets`` int32 tickets,
     grown as needed.  Every launch leaves its tickets at 0, and launches on
     one stream use the buffers in turn."""

@@ -7,6 +7,12 @@ hybrid models), returning y and the final recurrent state.
 ``ssd_scan_plain`` is the same function in plain PyTorch
 (``ref.ssd_scan_ref``); ``ops.ssd_scan`` pads the sequence to a chunk
 multiple and picks between the two by the device of the tensors.
+
+At bfloat16 the kernel runs its chunk products on the tensor cores, one
+block per (b, h, slice of the head dim p): ``split_plan`` picks the slice
+from the shapes alone, cutting p only when the grid would have fewer blocks
+than SMs.  It takes p a multiple of 16, a state width n in ``TC_STATES``
+and chunks of at most ``TC_MAX_CHUNK`` steps, which every config has.
 """
 
 from __future__ import annotations
@@ -16,12 +22,18 @@ import ctypes
 import torch
 
 from . import build
+from .paged_attention import sm_count
 from .ref import ssd_scan_ref as ssd_scan_plain
 
-__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "launches"]
+__all__ = ["ssd_scan_cuda", "ssd_scan_plain", "launches", "split_plan"]
 
 MAX_SMEM_BYTES = 232_448     # dynamic shared memory a block may use (H100)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 tensor-core kernel's widths: P-slices of a block, state widths,
+# the longest chunk a stage holds (``csrc/ssd_scan.cu``)
+P_BLOCKS = (64, 32, 16)
+TC_STATES = (16, 32, 64, 128)
+TC_MAX_CHUNK = 64
 
 # kernel launches made through ``ssd_scan_cuda``
 launches = 0
@@ -35,12 +47,24 @@ def _entries():
         lib = build.library("ssd_scan")
         fn = lib.ssd_scan_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         smem = lib.ssd_scan_smem_bytes
         smem.restype = ctypes.c_longlong
         smem.argtypes = [ctypes.c_int] * 3
         _fns = fn, smem
     return _fns
+
+
+def split_plan(b: int, h: int, p: int, n_sm: int) -> tuple[int, int]:
+    """``(p_block, n_slices)`` of the bf16 kernel: the widest of
+    ``P_BLOCKS`` that divides ``p`` (a multiple of 16), halved while the
+    grid of ``b * h * n_slices`` blocks has fewer blocks than SMs and the
+    slice is wider than 16.  Slice s holds head-dim columns
+    ``[s * p_block, (s + 1) * p_block)``: each column once."""
+    p_block = next(c for c in P_BLOCKS if p % c == 0)
+    while p_block > P_BLOCKS[-1] and b * h * (p // p_block) < n_sm:
+        p_block //= 2
+    return p_block, p // p_block
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -80,22 +104,36 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         _check(initial_state.dtype == torch.float32
                and initial_state.shape == (b, h, p, n),
                "initial_state must be (b, h, p, n) float32")
+    if x.dtype == torch.bfloat16:
+        _check(p % 16 == 0 and n in TC_STATES and chunk <= TC_MAX_CHUNK,
+               f"bfloat16 takes p a multiple of 16, n in {TC_STATES} and "
+               f"chunk <= {TC_MAX_CHUNK}, got p={p}, n={n}, chunk={chunk}")
+        _check(all(t.data_ptr() % 16 == 0 for t in (x, B, C))
+               and (initial_state is None
+                    or initial_state.data_ptr() % 8 == 0),
+               "bfloat16 x, B and C must be 16-byte aligned, the initial "
+               "state 8-byte aligned")
     fn, smem = _entries()
-    need = int(smem(p, n, chunk))
-    _check(need <= MAX_SMEM_BYTES, f"p={p}, n={n}, chunk={chunk} need {need} "
-           f"bytes of shared memory, above the {MAX_SMEM_BYTES} a block has")
+    p_block = 0
+    if x.dtype == torch.float32:
+        need = int(smem(p, n, chunk))
+        _check(need <= MAX_SMEM_BYTES, f"p={p}, n={n}, chunk={chunk} need "
+               f"{need} bytes of shared memory, above the {MAX_SMEM_BYTES} a "
+               f"block has")
     y = torch.empty_like(x)
     fs = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, (fs.zero_() if initial_state is None
                    else fs.copy_(initial_state))
     with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:
+            p_block, _ = split_plan(b, h, p, sm_count(x.device))
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                  C.data_ptr(),
                  None if initial_state is None else initial_state.data_ptr(),
                  y.data_ptr(), fs.data_ptr(), b, s, h, p, g, n, chunk,
-                 _DTYPES[x.dtype], stream)
+                 p_block, _DTYPES[x.dtype], stream)
     build.check(err, "ssd_scan")
     launches += 1
     return y, fs

@@ -23,10 +23,14 @@ chain mask matches paged attention within ``cases.PAGED_TOL``: at bf16 the
 two split small grids differently, by slots and by 64-key chunks).  The SSD
 scan's y is held against the plain version in float32 within 1e-4 (float32,
 the scan's band in ``tests/test_kernels.py``) or rtol 8e-3 / atol 1e-3 (bfloat16,
-``cases.SSD_TOL``), its float32 final state within 1e-4.  Decode and flash
+``cases.SSD_TOL``), its float32 final state within 1e-4; the bf16 scan (on
+the tensor cores) also with its head dim cut across blocks at small batch,
+a second call bit-equal.  Decode and flash
 attention (B7, B8) are held like paged attention, at the path shapes and at
 lengths 1, S and past S, Sq < Skv and non-causal; B8 in bf16 (the
-tensor-core kernel) at every head dim.  Paged attention in bf16 splits its
+tensor-core kernel) at every head dim; bf16 B7 (the window body) on grids
+that split its keys (``cases.DECODE_SPLIT_CASES``), a second call
+bit-equal, and equal bit for bit to B6 with a one-row window.  Paged attention in bf16 splits its
 slot axis across blocks: it is also held at the split's edges
 (``cases.PAGED_EDGE_CASES``); so do paged and contiguous tree attention in
 bf16, on grids small enough to split (``cases.TREE_SPLIT_CASES``), where a
@@ -493,7 +497,8 @@ SSD_SHAPES = [
     (2, 32, 8, 16, 1, 16, 8),          # smoke widths (p = n = 16, chunk 8)
     (8, 128, 80, 64, 1, 64, 64),       # zamba2-2.7b prefill
     (8, 128, 24, 64, 1, 128, 64),      # mamba2-130m heads, big state
-    (2, 64, 4, 32, 2, 16, 16),         # grouped B/C
+    (2, 64, 4, 32, 2, 16, 16),         # grouped B/C (bf16: p cut in two)
+    (1, 128, 80, 64, 1, 64, 64),       # zamba2-2.7b, one row (bf16: p cut)
 ]
 
 
@@ -501,6 +506,9 @@ SSD_SHAPES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("init", [False, True])
 def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, init):
+    """y and the final state within the bands; the bf16 tensor-core kernel,
+    which cuts p across blocks where the grid would have fewer blocks than
+    SMs, gives the same bits on a second call."""
     b, s, h, p, g, n, chunk = shape
     x, dt, A, B, C, st = cases.ssd_case(b, s, h, p, g, n, dtype, cuda,
                                         init=init)
@@ -512,6 +520,10 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, init):
     torch.testing.assert_close(y.float(), y_want, rtol=rtol, atol=atol)
     rtol, atol = cases.SSD_STATE_TOL
     torch.testing.assert_close(fs, fs_want, rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        y2, fs2 = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                                    initial_state=st)
+        assert torch.equal(y, y2) and torch.equal(fs, fs2)
 
 
 @pytest.mark.parametrize("init", [False, True])
@@ -538,6 +550,12 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         big = cases.ssd_case(1, 128, 1, 128, 1, 256, torch.float32, cuda)
         ssd.ssd_scan_cuda(*big[:5], chunk=128)
+    # the bf16 tensor-core kernel: n = 48, a chunk of 128, p = 24
+    for (s, p, n), chunk in (((16, 16, 48), 8), ((128, 16, 16), 128),
+                             ((16, 24, 16), 8)):
+        args = cases.ssd_case(1, s, 2, p, 1, n, torch.bfloat16, cuda)
+        with pytest.raises(ValueError, match="bfloat16 takes"):
+            ssd.ssd_scan_cuda(*args[:5], chunk=chunk)
 
 
 CONTIGUOUS_ROUNDS = {
@@ -614,6 +632,7 @@ DECODE_SHAPES = [
     (8, 32, 32, 128, 1024, (127, 190)),         # llama2-7b plain decode
     (4, 32, 4, 64, 1024, [1, 1024, 1100, 700]),  # lengths 1, S, past S
     (3, 8, 1, 80, 100, [1, 100, 130]),          # G = 8 at D = 80, ragged tile
+    (8, 32, 32, 96, 256, (1, 256)),             # D = 96, 256 blocks: no split
 ]
 
 
@@ -639,6 +658,58 @@ def test_decode_attention_returns_zero_for_a_dead_row(cuda):
     want = cases.decode_attention_held(q, kc, vc, ln)
     assert not got[0].any()
     torch.testing.assert_close(got[1:], want[1:], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", cases.DECODE_SPLIT_CASES + [
+    ("no split at D=80", (8, 32, 32, 80, 1024), [1, 1024, 1100, 0, 5, 64, 65,
+                                                  300]),
+    ("no split at D=96", (8, 32, 32, 96, 256), [256, 0, 1, 17, 300, 64, 128,
+                                                200]),
+], ids=lambda c: c[0])
+def test_decode_attention_bf16_splits_its_keys(cuda, case):
+    """bf16 B7 (the window body) splits its key axis only on a grid of
+    fewer blocks than SMs; within ``PAGED_TOL`` on the rows that see a
+    key, 0 on a row of length 0, and a second call gives the same bits."""
+    _, (B, H, KV, D, S), lengths = case
+    q, kc, vc, ln = cases.decode_case(B, H, KV, D, S, lengths, torch.bfloat16,
+                                      cuda)
+    plan = da.split_plan(q, kc, pa.sm_count(cuda))
+    assert (plan[2] > 1) == (B * KV < pa.sm_count(cuda))
+    got = da.decode_attention_cuda(q, kc, vc, ln)
+    want = cases.decode_attention_held(q, kc, vc, ln)
+    torch.cuda.synchronize()
+    live = ln > 0
+    rtol, atol = cases.PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float()[live], want[live], rtol=rtol,
+                               atol=atol)
+    assert not got[~live].any()
+    assert torch.equal(got, da.decode_attention_cuda(q, kc, vc, ln))
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 32, 4, 64, 1024, (128, 520)),            # draft step: 8 splits
+    (4, 32, 4, 64, 1024, [1, 1024, 1100, 700]),  # 16 splits
+    (8, 32, 32, 128, 1024, (127, 190)),          # Llama-2-7B step: no split
+    (2, 32, 4, 128, 1024, [5, 900]),             # 16 splits at D = 128
+    (3, 4, 2, 16, 96, [1, 96, 40]),              # smoke widths
+])
+def test_decode_attention_equals_tree_attention_at_one_row(cuda, shape):
+    """bf16 B7 at lengths l equals B6 with a one-row window, mask [[1]], at
+    lengths l - 1 over the same cache, bit for bit, on every row with
+    1 <= l <= S: one body, one key locator, the same split plan and the same
+    visible keys."""
+    B, H, KV, D, S, lengths = shape
+    q, kc, vc, ln = cases.decode_case(B, H, KV, D, S, lengths, torch.bfloat16,
+                                      cuda)
+    n_sm = pa.sm_count(cuda)
+    assert da.split_plan(q, kc, n_sm) == ta.split_plan(q[:, None], kc, n_sm)
+    got = da.decode_attention_cuda(q, kc, vc, ln)
+    b6 = ta.tree_attention_cuda(q[:, None].contiguous(), kc, vc, ln - 1,
+                                torch.ones((B, 1, 1), dtype=torch.bool,
+                                           device=cuda))[:, 0]
+    rows = (ln >= 1) & (ln <= S)
+    assert rows.any()
+    assert torch.equal(got[rows], b6[rows])
 
 
 FLASH_SHAPES = [

@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import cases
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import decode_attention_q8 as tdaq
 from repro_torch.kernels import fused_verify_sample as tfvs
 from repro_torch.kernels import gather_softmax_prob as tgsp
@@ -365,6 +366,176 @@ def test_tree_split_merge_matches_ref(case):
         first_last = ranges[-1][0]
         assert first_last <= lengths[0] and lengths[0] + T <= S
         assert not seen[1, :, first_last:].any()     # row 1: empty splits
+
+
+# (B, H, KV, S, SMs, n_split, split_keys): B7's phase-3 steps on an H100
+# (the TinyLlama draft step, the B=4 edge case, the Zamba2 and Llama-2-7B
+# steps), then the smoke steps (target and draft of the smoke engine over
+# max_len 96, the plain engine's over 48), None where the test derives it
+DECODE_SPLIT_SHAPES = [
+    (8, 32, 4, 1024, 132, 8, 128), (4, 32, 4, 1024, 132, 16, 64),
+    (8, 32, 32, 1024, 132, 1, 1024), (8, 32, 32, 1024, 132, 1, 1024),
+    (3, 4, 2, 96, 132, None, None), (3, 2, 1, 96, 132, None, None),
+    (3, 4, 2, 48, 132, None, None), (4, 32, 4, 1024, 1, 1, 1024),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,S,n_sm,n_split,split_keys",
+                         DECODE_SPLIT_SHAPES)
+def test_decode_split_plan_covers_every_key_once(B, H, KV, S, n_sm, n_split,
+                                                 split_keys):
+    """B7's bf16 split of the key axis is ``window_split_plan`` over S for
+    the G = H / KV heads of a kv head (one 16-row tile), from shapes alone:
+    runs of whole 64-key chunks covering every key once, none empty."""
+    q, kc = torch.empty((B, H, 1)), torch.empty((B, S, KV, 1))
+    plan = tda.split_plan(q, kc, n_sm)
+    assert plan == tpa.window_split_plan(B, KV, H // KV, S, n_sm)
+    row_tile, row_tiles, got_split, got_keys = plan
+    assert (row_tile, row_tiles) == (16, 1)
+    if n_split is not None:
+        assert (got_split, got_keys) == (n_split, split_keys)
+    ranges = tpa.window_split_ranges(S, got_split, got_keys)
+    assert [k for a, e in ranges for k in range(a, e)] == list(range(S))
+    assert all(e > a for a, e in ranges)
+    assert (got_split > 1) == (B * KV < n_sm and S > tpa.CHUNK_KEYS)
+
+
+# name, (B, H, KV, D, S), lengths: every grid splits (fewer blocks than SMs)
+DECODE_SPLIT_CASES = [
+    ("a split row of length 0", (3, 8, 2, 16, 256), [0, 200, 37]),
+    ("lengths past S", (2, 8, 4, 32, 192), [250, 192]),
+    ("G = 8 at D = 80", (2, 8, 1, 80, 320), [300, 65]),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES,
+                         ids=[c[0] for c in DECODE_SPLIT_CASES])
+def test_decode_split_merge_matches_ref(case):
+    """B7's bf16 split partials plus their merge, emulated in plain torch
+    (``_merge_splits`` over a one-row window), equal the JAX oracle within
+    the float32 band on every row that sees a key; a row of length 0 gives
+    0, as the kernel (the oracle's mean there is never committed)."""
+    name, (B, H, KV, D, S), lengths = case
+    rng = np.random.default_rng(len(name))
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    vc = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    ln = np.array(lengths, np.int32)
+    tq, tkc, tvc, tln = map(torch.from_numpy, (q, kc, vc, ln))
+    _, _, n_split, split_keys = tda.split_plan(tq, tkc, 132)
+    assert n_split > 1
+    ranges = tpa.window_split_ranges(S, n_split, split_keys)
+    seen = (torch.arange(S)[None] < tln.long()[:, None])[:, None]
+    got = _merge_splits(tq[:, None], tkc, tvc, seen, ranges)[:, 0]
+    live = tln > 0
+    want = np.asarray(jref.decode_attention_ref(
+        *(jnp.asarray(a) for a in (q, kc, vc, ln))))
+    np.testing.assert_allclose(got[live].numpy(), want[live.numpy()], **F32_TOL)
+    np.testing.assert_allclose(
+        got[live].numpy(),
+        tref.decode_attention_ref(tq, tkc, tvc, tln)[live].numpy(), **F32_TOL)
+    assert not got[~live].any()
+
+
+@pytest.mark.parametrize("b,h,p,n_sm,plan", [
+    (8, 80, 64, 132, (64, 1)),      # Zamba2-2.7B prefill: 640 blocks
+    (1, 80, 64, 132, (32, 2)),      # one row: 80 blocks, p cut in two
+    (8, 24, 64, 132, (64, 1)),      # mamba2-130m heads: 192 blocks
+    (2, 8, 16, 132, (16, 1)),       # smoke widths: no narrower slice
+    (2, 4, 32, 132, (16, 2)),
+    (1, 1, 48, 132, (16, 3)),
+    (1, 2, 64, 1, (64, 1)),
+])
+def test_ssd_split_plan_cuts_p_only_below_the_sm_count(b, h, p, n_sm, plan):
+    assert tssd.split_plan(b, h, p, n_sm) == plan
+    p_block, n_slices = plan
+    assert p_block * n_slices == p and p_block in tssd.P_BLOCKS
+
+
+def _ssd_tc_emulated(x, dt, A, B, C, chunk, init, n_sm):
+    """The bf16 B10 kernel's arithmetic in plain torch (float32): per slice
+    of p (``split_plan``) and chunk, dt folded into scores' = C B^T
+    exp(acum_i - acum_j) dt_j (causal) and B'[j] = exp(acum_last - acum_j)
+    dt_j B[j]; each float32 operand of a product (scores', the state, B')
+    rounded to bf16 hi + lo; y = exp(acum_i) C state^T + scores' x; state <-
+    exp(acum_last) state + x^T B'."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    p_block, n_slices = tssd.split_plan(b, h, p, n_sm)
+
+    def parts(t):
+        hi = t.to(torch.bfloat16).float()
+        return hi + (t - hi).to(torch.bfloat16).float()
+
+    Bh = B.repeat_interleave(h // g, dim=2)
+    Ch = C.repeat_interleave(h // g, dim=2)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    y = torch.zeros((b, s, h, p))
+    fs = torch.zeros((b, h, p, n))
+    for sl in range(n_slices):
+        cols = slice(sl * p_block, (sl + 1) * p_block)
+        st = (torch.zeros((b, h, p_block, n)) if init is None
+              else init[:, :, cols].clone())
+        for c in range(s // chunk):
+            rows = slice(c * chunk, (c + 1) * chunk)
+            xc = x[:, rows, :, cols].permute(0, 2, 1, 3)      # (b, h, L, pb)
+            Bc = Bh[:, rows].permute(0, 2, 1, 3)               # (b, h, L, n)
+            Cc = Ch[:, rows].permute(0, 2, 1, 3)
+            dtc = dt[:, rows].permute(0, 2, 1)                 # (b, h, L)
+            acum = torch.cumsum(A[None, :, None] * dtc, -1)
+            last = acum[..., -1:]
+            decay = torch.exp(acum[..., :, None] - acum[..., None, :])
+            sc = torch.where(causal, (Cc @ Bc.transpose(-1, -2)) * decay
+                             * dtc[..., None, :], 0.0)
+            yc = (torch.exp(acum)[..., None]
+                  * (Cc @ parts(st).transpose(-1, -2)) + parts(sc) @ xc)
+            y[:, rows, :, cols] = yc.permute(0, 2, 1, 3)
+            Bp = parts((torch.exp(last - acum) * dtc)[..., None] * Bc)
+            st = torch.exp(last)[..., None] * st + xc.transpose(-1, -2) @ Bp
+        fs[:, :, cols] = st
+    return y, fs
+
+
+# name, (b, s, h, p, g, n, chunk), initial state, SMs
+SSD_TC_CASES = [
+    ("chunk 64, initial state, p cut", (2, 128, 4, 32, 1, 16, 64), True, 132),
+    ("chunk 64, no initial state", (1, 128, 2, 64, 1, 32, 64), False, 1),
+    ("chunk 8, smoke widths", (2, 32, 8, 16, 1, 16, 8), False, 132),
+    ("chunk 8, initial state", (2, 24, 2, 16, 1, 16, 8), True, 132),
+    ("g = 2, p cut", (2, 64, 4, 32, 2, 16, 16), True, 132),
+]
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES, ids=[c[0] for c in SSD_TC_CASES])
+def test_ssd_tensor_core_arithmetic_matches_ref(case):
+    """The bf16 kernel's refactored arithmetic (dt folded into scores' and
+    B', each float32 operand in bf16 hi + lo parts, p cut by the plan),
+    emulated in plain torch on bf16-exact x, B and C, equals the JAX
+    oracle within the float32 bands on y and on the final state."""
+    name, (b, s, h, p, g, n, chunk), init, n_sm = case
+    rng = np.random.default_rng(len(name))
+
+    def bf16_exact(*shape):
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return t.to(torch.bfloat16).float().numpy()
+
+    x = bf16_exact(b, s, h, p)
+    Bm, C = bf16_exact(b, s, g, n), bf16_exact(b, s, g, n)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h) * 0.5).astype(np.float32)
+    st = rng.standard_normal((b, h, p, n)).astype(np.float32) if init else None
+    got_y, got_fs = _ssd_tc_emulated(
+        *map(torch.from_numpy, (x, dt, A, Bm, C)), chunk,
+        None if st is None else torch.from_numpy(st), n_sm)
+    want_y, want_fs = jref.ssd_scan_ref(
+        *(jnp.asarray(a) for a in (x, dt, A, Bm, C)), chunk=chunk,
+        initial_state=None if st is None else jnp.asarray(st))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               rtol=cases.SSD_TOL[torch.float32][0],
+                               atol=cases.SSD_TOL[torch.float32][1])
+    np.testing.assert_allclose(got_fs.numpy(), np.asarray(want_fs),
+                               rtol=cases.SSD_STATE_TOL[0],
+                               atol=cases.SSD_STATE_TOL[1])
 
 
 def _fused_inputs(seed, B, L, V, vhat):
