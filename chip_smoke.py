@@ -23,7 +23,11 @@ package.  Phases (none catches a failure):
      slot axis (``cases.PAGED_EDGE_CASES``), with the split printed; a
      chain-masked tree window must also match paged attention at lengths + 1
      within ``cases.PAGED_TOL``.  The samplers must agree except
-     where ``u * Z`` lies within rounding of a CDF step (float64 check).
+     where ``u * Z`` lies within rounding of a CDF step (float64 check);
+     the verification kernel (B2) is printed with its split of the
+     vocabulary (chunks a row), called twice (the same bits), and also run
+     with a row whose residual is all zero (the token must be argmax(p))
+     and one where nothing crosses (V - 1), ``cases.verify_edge_rows``.
      Contiguous tree attention (B6) is held like paged tree attention, and
      its chain mask must equal paged tree attention over the same keys laid
      out in pages, bit for bit; both tree kernels in bfloat16 also on grids
@@ -47,7 +51,10 @@ package.  Phases (none catches a failure):
      same normal K/V (Llama-2-7B, TinyLlama and Zamba2 steps, the JAX kernel
      bench's shape, lengths 1, S, past S and 0) is held like B7 on its live
      rows, its dead row must be 0, and its error against B7 on the
-     unquantized caches must stay under the JAX package's budget of 0.05.
+     unquantized caches must stay under the JAX package's budget of 0.05;
+     each bf16 B9 case is printed with its split, called twice (the same
+     bits) and, at unit scales, must equal bf16 B7 on the codes as bf16
+     caches bit for bit.
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
      weights and draws, three sequential rounds then three tree rounds
@@ -101,8 +108,8 @@ package.  Phases (none catches a failure):
      each layer held against its plain version within ``cases.PAGED_TOL``
      and against B7 on the bf16 slab, and the bytes of both slabs
  11. summary lines: each profiled path's device busy, wall and idle share
-     per round or step; per path, the launches of B3, B6, B1 and B7 per
-     round or step (counters) beside their profiled calls and device ms;
+     per round or step; per path, the launches of B3, B6, B1, B7 and B2
+     per round or step (counters) beside their profiled calls and device ms;
      then one ``{"kernels": [...]}`` JSON line (each kernel with the design
      its bf16 route moved to, if any), the card line, and as the last line
      ``{"ok": true, "device": {...}}``
@@ -135,8 +142,12 @@ PAGED_CASES = [
     ("tinyllama-1.1b prefill", (8, 127, 32, 4, 64, 16, 1)),
 ]
 PAGED_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
-VERIFY_CASES = [("llama pair, V=32000", (8, 8, 32000, 64)),
-                ("qwen3.5 pair, V=151936", (8, 8, 151936, 64))]
+VERIFY_CASES = [
+    # name, (B, L, V, Vhat), rows 0 and 1 at Z = 0 and nothing crossing
+    ("llama pair, V=32000", (8, 8, 32000, 64), False),
+    ("qwen3.5 pair, V=151936", (8, 8, 151936, 64), False),
+    ("llama pair, Z = 0 and no crossing", (8, 8, 32000, 64), True),
+]
 VERIFY_HEADLINE = "llama pair, V=32000"
 TREE_ROUNDS = 20
 TREE_CASES = [
@@ -269,17 +280,30 @@ def check_kernels(torch, cases, pa, fvs):
                                      f"disagrees with plain, max|err| {err}")
             paged.append(rec)
     verify = []
-    for name, (B, L, V, vhat) in VERIFY_CASES:
+    for name, (B, L, V, vhat), edge in VERIFY_CASES:
         args = cases.verify_case(B, L, V, vhat, "cuda")
+        if edge:
+            args = cases.verify_edge_rows(args)
+        n_chunks, chunk = fvs.split_plan(args[0], args[3])
         got = fvs.fused_verify_sample_cuda(*args)
         want = fvs.fused_verify_sample_plain(*args)
+        again = fvs.fused_verify_sample_cuda(*args)
         torch.cuda.synchronize()
         rep = cases.compare_verify(got, want, args)
+        second_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        edge_tokens = None
+        if edge:
+            sel = min(rep["n_acc"][0], L - 1)
+            edge_tokens = (int(got[2][0]) == int(args[1][0, sel])
+                           and int(got[2][1]) == V - 1)
         n_bytes, n_ops = cases.verify_work(*args)
         bound_ms, bound_by = cases.bound(n_bytes, n_ops, torch.float32)
         n_acc, dlen = rep["n_acc"], rep["draft_len"]
         rec = {
             "case": name, "shape": {"B": B, "L": L, "V": V, "vhat": vhat},
+            "vocab_split": {"chunks": n_chunks, "chunk": chunk},
+            "second_call_equal": second_equal,
+            "edge_rows_exact": edge_tokens,
             **{k: rep[k] for k in ("accept_equal", "n_acc_equal",
                                    "calibrated_equal_rows",
                                    "calibrated_diff_rows",
@@ -293,16 +317,26 @@ def check_kernels(torch, cases, pa, fvs):
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "ops": n_ops,
         }
-        log(f"fused_verify_sample {name:25s} accept equal {rep['accept_equal']}  "
+        log(f"fused_verify_sample {name:34s} ({n_chunks} chunks of {chunk} "
+            f"a row, {B * n_chunks} blocks) accept equal {rep['accept_equal']}  "
             f"n_acc equal {rep['n_acc_equal']}  calibrated equal "
             f"{rep['calibrated_equal_rows']}/{B} (differing rows "
             f"{rep['calibrated_diff_rows']} at a CDF step: "
             f"{rep['diff_rows_at_cdf_step']})  reject rows {rec['rows_reject']} "
-            f"full-accept rows {rec['rows_full_accept']}  kernel {rec['ms']:.4f} ms  "
-            f"plain {rec['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+            f"full-accept rows {rec['rows_full_accept']}  second call equal "
+            f"{second_equal}"
+            + ("" if edge_tokens is None else
+               f"  Z = 0 row -> argmax(p), no-crossing row -> V - 1: "
+               f"{edge_tokens}")
+            + f"  kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if not (rep["accept_equal"] and rep["n_acc_equal"]
                 and rep["diff_rows_at_cdf_step"]):
             raise AssertionError(f"fused_verify_sample {name}: {rep}")
+        if not second_equal or edge_tokens is False:
+            raise AssertionError(f"fused_verify_sample {name}: a second call "
+                                 f"gave other bits ({not second_equal}) or an "
+                                 f"edge row another token ({edge_tokens})")
         if not (rec["rows_reject"] and rec["rows_full_accept"]):
             raise AssertionError(f"{name}: the case lost its reject or "
                                  f"full-accept rows: {rep}")
@@ -693,21 +727,36 @@ def check_decode_kernels(torch, cases, pa, ta, da, fa):
     return decode, flash
 
 
-def check_q8_kernel(torch, cases, da, daq):
+def check_q8_kernel(torch, cases, pa, da, daq):
     """Phase 3, int8 decode attention (B9) against its plain version at the
     path shapes and the edge rows, and against B7 on the unquantized caches;
-    returns records."""
+    bf16 B9 also called twice (the same bits) and, at unit scales, against
+    bf16 B7 on ``codes.to(bfloat16)`` (the same bits on every row); returns
+    records."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q8 = []
     for name, shape in Q8_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = cases.q8_case(*shape, dtype=dtype, device="cuda")
+            q, kq, vq, ks, vs, ln = args
             exact = cases.decode_case(*shape, dtype=dtype, device="cuda")
             live = args[-1] > 0
-            got = daq.decode_attention_q8_cuda(*args)
+            bf16 = dtype == torch.bfloat16
+            plan = (da.split_plan(q, kq, pa.sm_count(q.device)) if bf16
+                    else None)
+            out = daq.decode_attention_q8_cuda(*args)
+            got = out
             want = cases.q8_held(*args)
             plain = daq.decode_attention_q8_plain(*args).float()
             b7 = da.decode_attention_cuda(*exact).float()
+            again = daq.decode_attention_q8_cuda(*args) if bf16 else out
+            codes_equal = None
+            if bf16:
+                ones = torch.ones_like(ks)
+                codes_equal = bool(torch.equal(
+                    daq.decode_attention_q8_cuda(q, kq, vq, ones, ones, ln),
+                    da.decode_attention_cuda(q, kq.to(dtype), vq.to(dtype),
+                                             ln)))
             torch.cuda.synchronize()
             if got.dtype != dtype or got[~live].any():
                 raise AssertionError(f"decode_attention_q8 {name} {dtype}: "
@@ -727,6 +776,10 @@ def check_q8_kernel(torch, cases, da, daq):
                 lambda: daq.decode_attention_q8_cuda(*args),
                 lambda: daq.decode_attention_q8_plain(*args), None)
             rec.update(
+                split_plan=(dict(zip(("row_tile", "row_tiles", "n_split",
+                                      "split_keys"), plan)) if plan else None),
+                second_call_equal=bool(torch.equal(out, again)),
+                unit_scales_equal_to_decode_attention_on_codes=codes_equal,
                 dead_rows=int((~live).sum()),
                 max_abs_err_vs_decode_attention_exact=err_b7,
                 decode_attention_exact_ms=cases.time_ms(
@@ -734,11 +787,19 @@ def check_q8_kernel(torch, cases, da, daq):
                 sdpa_dequantized_ms=cases.time_ms(lambda: sdpa(sq, sk, sv,
                                                                **kw)))
             log(f"decode_attention_q8 {name:33s} {rec['dtype']:8s} "
-                + _attention_line(rec)
+                + _split_note(plan) + _attention_line(rec)
                 + f"; {err_b7:.3e} vs B7 on the exact caches (budget "
                 f"{Q8_BUDGET}), B7 {rec['decode_attention_exact_ms']:.4f} ms, "
                 f"sdpa over dequantized caches (not the same function) "
-                f"{rec['sdpa_dequantized_ms']:.4f} ms")
+                f"{rec['sdpa_dequantized_ms']:.4f} ms"
+                + ("" if codes_equal is None else
+                   f"; unit scales = B7 on the codes bit for bit: "
+                   f"{codes_equal}; second call equal "
+                   f"{rec['second_call_equal']}"))
+            if not rec["second_call_equal"] or codes_equal is False:
+                raise AssertionError(f"decode_attention_q8 {name} {dtype}: a "
+                                     f"second call gave other bits or unit "
+                                     f"scales differ from B7 on the codes")
             q8.append(rec)
     return q8
 
@@ -1132,10 +1193,16 @@ def profile_rounds(torch, step, n, label, unit="round"):
 
 
 def window_op(kernel_name):
-    """The op of the port's window attention kernels (B1, B3, B6, B7) that a
-    profiler key names, else None: the bf16 body of
-    ``csrc/window_attention_bf16.cuh`` is told apart by its key locator and
-    mask policy, the float32 kernels by their names."""
+    """The op of the port's window attention kernels (B1, B3, B6, B7, B9)
+    or of the verification kernel (B2) that a profiler key names, else
+    None: the bf16 body of ``csrc/window_attention_bf16.cuh`` is told apart
+    by its key locator and mask policy, the float32 kernels by their
+    names."""
+    if "fused_verify_sample_kernel" in kernel_name:
+        return "fused_verify_sample"
+    if ("ContiguousCodes" in kernel_name
+            or "::decode_attention_kernel<float, signed char" in kernel_name):
+        return "decode_attention_q8"
     if "CausalRows" in kernel_name:
         return ("decode_attention" if "ContiguousKeys" in kernel_name
                 else "paged_attention")
@@ -1333,7 +1400,7 @@ def main() -> int:
     tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
     ctree, scan = check_contiguous_kernels(torch, cases, pa, pta, ta, ssd)
     decode, flash = check_decode_kernels(torch, cases, pa, ta, da, fa)
-    q8 = check_q8_kernel(torch, cases, da, daq)
+    q8 = check_q8_kernel(torch, cases, pa, da, daq)
     timed = len(cases.spin_overruns)
     log(f"timing spin check: {sum(1 for f, _, _ in cases.spin_overruns if f)} "
         f"of {timed} phase-3 timings had calls whose host enqueue outlasted "
@@ -1409,7 +1476,7 @@ def main() -> int:
         prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
         parts = []
         for op in ("paged_tree_attention", "tree_attention", "paged_attention",
-                   "decode_attention"):
+                   "decode_attention", "fused_verify_sample"):
             n = counts[op]["kernel"] - start[op]["kernel"]
             if n:
                 ms, calls = prof.get(op, (0.0, 0.0))
@@ -1461,7 +1528,8 @@ def main() -> int:
               paged, redesigned="bf16: mma.sync tiles, split slot axis"),
         entry("fused_verify_sample", f"{csrc}/fused_verify_sample.cu",
               f"{tpu}/fused_verify_sample.py:181", pick(verify, VERIFY_HEADLINE),
-              verify),
+              verify, redesigned="vocab axis split across blocks, per-row "
+              "waits under a cooperative launch"),
         entry("paged_tree_attention", f"{csrc}/paged_tree_attention.cu",
               f"{tpu}/tree_attention.py:256", pick(tree, *TREE_HEADLINE), tree,
               redesigned="bf16: the window body, tree mask, split key axis"),
@@ -1488,7 +1556,9 @@ def main() -> int:
               f"{tpu}/flash_attention.py:95", pick(flash, *FLASH_HEADLINE),
               flash, redesigned="bf16: mma.sync tiles, cp.async ring"),
         entry("decode_attention_q8", f"{csrc}/decode_attention.cu",
-              f"{tpu}/decode_attention.py:168", pick(q8, *Q8_HEADLINE), q8),
+              f"{tpu}/decode_attention.py:168", pick(q8, *Q8_HEADLINE), q8,
+              redesigned="bf16 q: the window body over int8 rows, split key "
+              "axis"),
     ]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} launched on no path"

@@ -39,17 +39,22 @@
 // per row) and accumulate P V with each thread owning four output columns of
 // a few rows.  About 80 KB of dynamic shared memory at D = 128.
 //
-// The same first kernel, instantiated on an int8 cache type, replaces
+// B9, decode_attention_q8_launch, replaces
 // decode_attention.py::decode_attention_q8_pallas (the pl.pallas_call at
 // decode_attention.py:168): caches (B, S, KV, D) int8 with float32 scales
-// (B, KV), one per (batch row, kv head).  The dequant is fused into the tile
-// load, as the Pallas kernel fuses it on its VMEM tiles: each thread reads
-// four codes (one char4) of K and of V, converts them to float32 and
-// multiplies them by the block's k_scale / v_scale (one float each, read
-// once per block) before staging them.  Everything after the load is shared
-// with the float32 instantiation.  An int8 row is D bytes (16 to 128, always a multiple of 16), so a
-// key costs half its bfloat16 bytes and the bound halves.  The int8 tensor
-// cores are no help while q is floating point.
+// (B, KV), one per (batch row, kv head).  An int8 row is D bytes (16 to 128,
+// always a multiple of 16), so a key costs half its bfloat16 bytes and the
+// bound halves; the int8 tensor cores are no help while q is floating point.
+// With a bfloat16 q it is bf16 B7 over int8 rows: the same window body,
+// mask, head dims and split plan, with the ``ContiguousCodes`` locator,
+// whose rows are staged as codes by 16-byte cp.async copies and turned into
+// bf16 in shared memory; k_scale joins the score scale and v_scale
+// multiplies the output, so at unit scales B9 equals bf16 B7 on the codes
+// bit for bit.  With a float32 q it runs the first kernel instantiated on
+// the int8 cache type, the dequant fused into the tile load as the Pallas
+// kernel fuses it on its VMEM tiles: each thread reads four codes (one
+// char4) of K and of V, converts them to float32 and multiplies them by the
+// block's k_scale / v_scale before staging them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,23 +81,6 @@ template <> struct Vec4<float> {
     *reinterpret_cast<float4*>(p) = v;
   }
 };
-template <> struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 v) {
-    // round to nearest even, as torch's .to(bfloat16)
-    __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
 
 template <> struct Vec4<int8_t> {   // four int8 codes: one 4-byte load
   static __device__ __forceinline__ float4 load(const int8_t* p) {
@@ -111,8 +99,8 @@ constexpr size_t smem_floats() {
          (size_t)G_MAX * (KT + 1) + 3 * (size_t)G_MAX;
 }
 
-// T: q and out (float or bf16); TC: the caches, T itself (B7) or int8_t
-// (B9, dequantized on the load with the block's k_scale / v_scale).
+// T: q and out (float); TC: the caches, T itself (B7) or int8_t (B9,
+// dequantized on the load with the block's k_scale / v_scale).
 template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const TC* __restrict__ k_cache,
@@ -330,30 +318,32 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_cache,
 }
 
 // The bfloat16 route: window_bf16::launch of a 16-row tile over contiguous
-// keys with per-row horizons, at every head dim B7 takes.
-template <int D>
+// keys (bf16 rows for B7, int8 codes for B9) with per-row horizons, at every
+// head dim B7 takes.
+template <int D, class Keys>
 cudaError_t launch_bf16(const void* q, const void* k_cache, const void* v_cache,
-                        const int* lengths, void* out, float* part,
-                        int* tickets, int B, int H, int KV, int S, int n_split,
+                        Keys keys, const int* lengths, void* out, float* part,
+                        int* tickets, int B, int H, int KV, int n_split,
                         int split_keys, float scale, cudaStream_t stream) {
   return window_bf16::launch<D, 1>(
-      q, k_cache, v_cache, window_bf16::ContiguousKeys{S, 0},
-      window_bf16::CausalRows{}, lengths, out, part, tickets, B, 1, H, KV,
-      n_split, split_keys, scale, stream);
+      q, k_cache, v_cache, keys, window_bf16::CausalRows{}, lengths, out,
+      part, tickets, B, 1, H, KV, n_split, split_keys, scale, stream);
 }
 
+template <class Keys>
 cudaError_t dispatch_bf16(int D, const void* q, const void* k_cache,
-                          const void* v_cache, const int* lengths, void* out,
-                          float* part, int* tickets, int B, int H, int KV,
-                          int S, int n_split, int split_keys, float scale,
+                          const void* v_cache, Keys keys, const int* lengths,
+                          void* out, float* part, int* tickets, int B, int H,
+                          int KV, int n_split, int split_keys, float scale,
                           cudaStream_t stream) {
   if (n_split < 1 || split_keys < 1 ||
       (n_split > 1 && (part == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
 #define DECODE_BF16_CASE(DIM)                                                 \
   case DIM:                                                                   \
-    return launch_bf16<DIM>(q, k_cache, v_cache, lengths, out, part, tickets,  \
-                            B, H, KV, S, n_split, split_keys, scale, stream);
+    return launch_bf16<DIM>(q, k_cache, v_cache, keys, lengths, out, part,     \
+                            tickets, B, H, KV, n_split, split_keys, scale,     \
+                            stream);
   switch (D) {
     DECODE_BF16_CASE(16)
     DECODE_BF16_CASE(32)
@@ -390,9 +380,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
     err = dispatch_d<float, float>(D, q, k_cache, v_cache, nullptr, nullptr,
                                    ln, out, B, H, KV, S, scale, st);
   } else if (dtype == 1) {
-    err = dispatch_bf16(D, q, k_cache, v_cache, ln, out,
-                        static_cast<float*>(part), static_cast<int*>(tickets),
-                        B, H, KV, S, n_split, split_keys, scale, st);
+    err = dispatch_bf16(D, q, k_cache, v_cache, window_bf16::ContiguousKeys{S, 0},
+                        ln, out, static_cast<float*>(part),
+                        static_cast<int*>(tickets), B, H, KV, n_split,
+                        split_keys, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -402,13 +393,17 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
 // B9: q (B, H, D) and out (B, H, D) of one dtype (0 = float32, 1 =
 // bfloat16); caches (B, S, KV, D) int8; k_scale / v_scale (B, KV) float32;
 // lengths (B,) int32.  All contiguous and 16-byte aligned; H / KV <= 16.
-// Returns the cudaError_t of the launch.
+// ``part``, ``tickets``, ``n_split`` and ``split_keys`` as for
+// decode_attention_launch (bfloat16 only).  Returns the cudaError_t of the
+// launch.
 extern "C" int decode_attention_q8_launch(const void* q, const void* k_cache,
                                           const void* v_cache,
                                           const void* k_scale,
                                           const void* v_scale,
                                           const void* lengths, void* out,
-                                          int B, int H, int KV, int D, int S,
+                                          void* part, void* tickets, int B,
+                                          int H, int KV, int D, int S,
+                                          int n_split, int split_keys,
                                           int dtype, float scale,
                                           void* stream) {
   if (KV < 1 || H % KV != 0 || H / KV > G_MAX)
@@ -422,8 +417,10 @@ extern "C" int decode_attention_q8_launch(const void* q, const void* k_cache,
     err = dispatch_d<float, int8_t>(D, q, k_cache, v_cache, ks, vs, ln, out, B,
                                     H, KV, S, scale, st);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16, int8_t>(D, q, k_cache, v_cache, ks, vs, ln,
-                                            out, B, H, KV, S, scale, st);
+    err = dispatch_bf16(D, q, k_cache, v_cache,
+                        window_bf16::ContiguousCodes{{S, 0}, ks, vs}, ln, out,
+                        static_cast<float*>(part), static_cast<int*>(tickets),
+                        B, H, KV, n_split, split_keys, scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

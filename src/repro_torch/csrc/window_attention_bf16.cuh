@@ -1,13 +1,16 @@
 // Window attention at bfloat16 on Hopper's tensor cores (sm_90a): the one
 // kernel body of paged_attention.cu (B1), paged_tree_attention.cu (B3),
-// tree_attention.cu (B6) and decode_attention.cu (B7, a one-row window over
-// contiguous keys with B1's horizon, through its own dispatch of head dims).
+// tree_attention.cu (B6) and decode_attention.cu (B7 and, with a bf16 q, B9:
+// a one-row window over contiguous keys with B1's horizon, through their
+// own dispatch of head dims).
 //
 // A window of T query rows of batch row b attends keys of logical positions
-// [0, n_keys).  Two template parameters make the three kernels:
+// [0, n_keys).  Two template parameters make the kernels:
 //   - a key locator finds key ``pos`` of row b: through a page table whose
 //     unmapped (-1) slots read as zeros and are masked (``PagedKeys``), or in
-//     a contiguous (B, S, KV, D) cache (``ContiguousKeys``);
+//     a contiguous (B, S, KV, D) cache (``ContiguousKeys``), of bf16 rows or
+//     of int8 codes with one k and one v scale per (b, kv head)
+//     (``ContiguousCodes``, B9: its ``elem`` is int8_t);
 //   - a mask policy says which keys a query row sees: B1's per-row horizon,
 //     row t sees kpos < lengths[b] + t (``CausalRows``), or a token tree's,
 //     row t sees kpos < lengths[b] and window key lengths[b] + u where bit u
@@ -39,6 +42,16 @@
 // clearing between calls.  A block whose range lies past the tile's horizon
 // or holds only unmapped slots writes an empty partial (m = -inf, l = 0),
 // skipped by the merge; a row that sees no key returns 0.
+//
+// Int8 codes (B9).  A code row is D bytes (16 to 128, a multiple of 16), so
+// it is staged by D / 16 16-byte cp.async copies into a two-stage ring of
+// codes beside the bf16 one; once chunk c has landed, one pass over shared
+// memory turns its codes into the bf16 rows of stage c & 1 (exact: |code|
+// <= 127), and the body runs on them unchanged.  The block's k_scale joins
+// the score scale, its v_scale multiplies the finished output: at unit
+// scales the arithmetic is B7's on codes.to(bfloat16), bit for bit.  The
+// kernel's k_src / v_src are the caches' base pointers, read as the
+// locator's ``elem``; the bf16 locators compile as they did before.
 
 #pragma once
 
@@ -46,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -56,9 +71,11 @@ constexpr int THREADS = 128;   // four warps
 constexpr int KC = 64;         // logical key positions of a staged chunk
 constexpr int T_MAX = 64;      // a tree window: one 64-bit word per row
 
-template <int D, int WR>
-constexpr size_t smem_bytes() {   // q tile + two stages of K and V
-  return sizeof(bf16) * (size_t)(16 * WR + 4 * KC) * (D + 8);
+// q tile + two stages of K and V (+ two stages of their codes)
+template <int D, int WR, class Keys>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (size_t)(16 * WR + 4 * KC) * (D + 8) +
+         (std::is_same<typename Keys::elem, bf16>::value ? 0 : 4 * (size_t)KC * D);
 }
 
 // ---------------------------------------------------------------------------
@@ -69,6 +86,7 @@ constexpr size_t smem_bytes() {   // q tile + two stages of K and V
 // split holds ``split`` whole slots (B1's plan), else ``split`` keys.
 template <bool SLOT_SPLIT>
 struct PagedKeys {
+  using elem = bf16;
   const int* page_table;
   int ps, n_slots;
   const int* pt;   // row b's slots, set by row()
@@ -105,6 +123,7 @@ struct PagedKeys {
 
 // Caches (B, S, KV, D): key ``pos`` of row b is row pos of b's slab.
 struct ContiguousKeys {
+  using elem = bf16;
   int S;
   int b;   // set by row()
 
@@ -123,6 +142,14 @@ struct ContiguousKeys {
     ok = pos < k_end;
     return (((size_t)b * S + pos) * KV + kv) * D;
   }
+};
+
+// Caches (B, S, KV, D) of int8 codes with float32 scales (B, KV), one k and
+// one v scale per (batch row, kv head): B9.
+struct ContiguousCodes : ContiguousKeys {
+  using elem = int8_t;
+  const float* k_scale;
+  const float* v_scale;
 };
 
 // ---------------------------------------------------------------------------
@@ -216,6 +243,8 @@ window_attention_kernel(const bf16* __restrict__ q,
                         float scale_log2) {
   using namespace mma_bf16;
   static_assert(D % 16 == 0 && D <= 128 && (WR == 1 || WR == 4), "shape");
+  using elem = typename Keys::elem;
+  constexpr bool CODES = !std::is_same<elem, bf16>::value;   // int8 rows (B9)
   constexpr int ROWS = 16 * WR;    // query rows of the tile
   constexpr int WK = 4 / WR;       // warps sharing one 16-row group
   constexpr int KW = KC / WK;      // keys of a chunk each warp scores
@@ -224,10 +253,14 @@ window_attention_kernel(const bf16* __restrict__ q,
   constexpr int C8 = D / 8;        // 16-byte chunks of a row
   constexpr int KS = D / 16;       // k-steps of Q K^T
   constexpr int NB = D / 8;        // 8-column blocks of the output
+  constexpr int C16 = D / 16;      // 16-byte chunks of a code row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // ROWS x DP
   bf16* k_s = q_s + ROWS * DP;                     // 2 x KC x DP
   bf16* v_s = k_s + 2 * KC * DP;                   // 2 x KC x DP
+  // codes only: 2 x KC x D of K, then of V
+  int8_t* kc_s = reinterpret_cast<int8_t*>(v_s + 2 * KC * DP);
+  int8_t* vc_s = kc_s + 2 * KC * D;
   // after the walk, over the K/V stages: WK x ROWS states (acc[D], m, l)
   float* acc_s = reinterpret_cast<float*>(k_s);    // WK x ROWS x D
   float* m_s = acc_s + WK * ROWS * D;              // WK x ROWS
@@ -254,6 +287,12 @@ window_attention_kernel(const bf16* __restrict__ q,
   const int kw0 = (warp % WK) * KW;  // its first key of a chunk
   const int base = lengths[b];
   keys.row(b);
+  float scale_s = scale_log2;   // of the scores (log2 units)
+  float out_s = 1.f;            // of the output (codes only)
+  if constexpr (CODES) {
+    scale_s *= keys.k_scale[b * KV + kv];
+    out_s = keys.v_scale[b * KV + kv];
+  }
 
   // keys [k_begin, k_end): this split's range, clipped to the tile's horizon
   const int tile_h =
@@ -273,14 +312,28 @@ window_attention_kernel(const bf16* __restrict__ q,
 
   auto load_chunk = [&](int c, int stage) {
     const int kc0 = k_begin + c * KC;
-    for (int i = tid; i < KC * C8; i += THREADS) {
-      const int j = i / C8, cc = i % C8;
-      bool ok;
-      const size_t o = keys.offset(kc0 + j, k_end, KV, kv, D, ok) + cc * 8;
-      const int d = (stage * KC + j) * DP + cc * 8;
-      cp_async16(k_s + d, ok ? k_src + o : k_src, ok);   // zeros where
-      cp_async16(v_s + d, ok ? v_src + o : v_src, ok);   // unmapped
-      if (cc == 0) mapped_s[stage][j] = ok;
+    if constexpr (CODES) {
+      const elem* k8 = reinterpret_cast<const elem*>(k_src);
+      const elem* v8 = reinterpret_cast<const elem*>(v_src);
+      for (int i = tid; i < KC * C16; i += THREADS) {
+        const int j = i / C16, cc = i % C16;
+        bool ok;
+        const size_t o = keys.offset(kc0 + j, k_end, KV, kv, D, ok) + cc * 16;
+        const int d = (stage * KC + j) * D + cc * 16;
+        cp_async16(kc_s + d, ok ? k8 + o : k8, ok);   // zeros past the range
+        cp_async16(vc_s + d, ok ? v8 + o : v8, ok);
+        if (cc == 0) mapped_s[stage][j] = ok;
+      }
+    } else {
+      for (int i = tid; i < KC * C8; i += THREADS) {
+        const int j = i / C8, cc = i % C8;
+        bool ok;
+        const size_t o = keys.offset(kc0 + j, k_end, KV, kv, D, ok) + cc * 8;
+        const int d = (stage * KC + j) * DP + cc * 8;
+        cp_async16(k_s + d, ok ? k_src + o : k_src, ok);   // zeros where
+        cp_async16(v_s + d, ok ? v_src + o : v_src, ok);   // unmapped
+        if (cc == 0) mapped_s[stage][j] = ok;
+      }
     }
   };
   if (n_chunks > 0) {
@@ -308,6 +361,28 @@ window_attention_kernel(const bf16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();            // chunk c (and the q tile) have landed
     __syncthreads();
+    if constexpr (CODES) {         // chunk c's codes to the bf16 rows of c & 1
+      const int st = c & 1;
+      for (int i = tid; i < 2 * KC * C16; i += THREADS) {
+        const int kv_half = i / (KC * C16);
+        const int j = (i / C16) % KC, cc = i % C16;
+        const int8_t* src = (kv_half ? vc_s : kc_s) + (st * KC + j) * D + cc * 16;
+        bf16* dst = (kv_half ? v_s : k_s) + (st * KC + j) * DP + cc * 16;
+        const int4 raw = *reinterpret_cast<const int4*>(src);
+        const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+        uint32_t h[8];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          h[2 * x] = pack((float)(int8_t)(w[x] & 0xff),
+                          (float)(int8_t)((w[x] >> 8) & 0xff));
+          h[2 * x + 1] = pack((float)(int8_t)((w[x] >> 16) & 0xff),
+                              (float)(int8_t)((w[x] >> 24) & 0xff));
+        }
+        reinterpret_cast<uint4*>(dst)[0] = make_uint4(h[0], h[1], h[2], h[3]);
+        reinterpret_cast<uint4*>(dst)[1] = make_uint4(h[4], h[5], h[6], h[7]);
+      }
+      __syncthreads();
+    }
     if (c == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
@@ -344,7 +419,7 @@ window_attention_kernel(const bf16* __restrict__ q,
         const int j = kw0 + n * 8 + tq * 2 + (e & 1);
         const bool seen =
             mapped_s[st][j] && mask.sees(kc0 + j, n * 8 + (e & 1), e >> 1);
-        s[n][e] = seen ? s[n][e] * scale_log2 : -INFINITY;
+        s[n][e] = seen ? s[n][e] * scale_s : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     }
@@ -436,7 +511,8 @@ window_attention_kernel(const bf16* __restrict__ q,
     }
     const int r = r0 + i;
     if (n_split == 1) {
-      const float inv = L > 0.f ? 1.f / L : 0.f;   // no key: 0
+      float inv = L > 0.f ? 1.f / L : 0.f;   // no key: 0
+      if constexpr (CODES) inv *= out_s;
       uint4 pk;
       pk.x = pack(A[0] * inv, A[1] * inv);
       pk.y = pack(A[2] * inv, A[3] * inv);
@@ -479,7 +555,8 @@ window_attention_kernel(const bf16* __restrict__ q,
       A[0] += e * a0.x; A[1] += e * a0.y; A[2] += e * a0.z; A[3] += e * a0.w;
       A[4] += e * a1.x; A[5] += e * a1.y; A[6] += e * a1.z; A[7] += e * a1.w;
     }
-    const float inv = L > 0.f ? 1.f / L : 0.f;   // no key: 0
+    float inv = L > 0.f ? 1.f / L : 0.f;   // no key: 0
+    if constexpr (CODES) inv *= out_s;
     uint4 pk;
     pk.x = pack(A[0] * inv, A[1] * inv);
     pk.y = pack(A[2] * inv, A[3] * inv);
@@ -497,7 +574,7 @@ cudaError_t launch(const void* q, const void* k_src, const void* v_src,
                    Keys keys, Mask mask, const int* lengths, void* out,
                    float* part, int* tickets, int B, int n_t, int H, int KV,
                    int n_split, int split, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, WR>();
+  constexpr size_t smem = smem_bytes<D, WR, Keys>();
   static bool sized = false;   // the attribute is set once per instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(

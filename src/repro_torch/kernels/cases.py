@@ -242,6 +242,29 @@ def verify_case(B, L, V, vhat, device, seed=0):
             u_res.to(device), dlen.to(device, torch.int32))
 
 
+def verify_edge_rows(args):
+    """``verify_case``'s inputs with the residual's two edge cases on batch
+    rows 0 and 1: every drafted row is one-hot (logit 0 at the drafted token
+    t, -200 elsewhere: p = 1 at t, 0 past exp's range) and every entry of
+    its sparse row is t, the first carrying q(t), the others 0.  Row 0 gives
+    q(t) = 1, so max(p - q, 0) is all zero (Z = 0: the token is argmax(p) =
+    t); row 1 gives q(t) = 0.5 and u_resid = 1, so u * Z = Z = 0.5 equals
+    the last CDF value exactly and nothing crosses (the token is V - 1).  p_S = q(t) <= 1 = p_L: both rows accept every
+    drafted token.  Returns new tensors; the inputs stay as they were."""
+    logits, tokens, probs, q_idx, q_val, u_acc, u_res, dlen = (
+        t.clone() for t in args)
+    L = tokens.shape[1]
+    for b, qt in ((0, 1.0), (1, 0.5)):
+        logits[b, :L] = -200.0
+        logits[b, torch.arange(L, device=logits.device), tokens[b].long()] = 0.0
+        q_idx[b] = tokens[b][:, None]
+        q_val[b] = 0.0
+        q_val[b, :, 0] = qt
+        probs[b] = qt
+    u_res[1] = 1.0
+    return logits, tokens, probs, q_idx, q_val, u_acc, u_res, dlen
+
+
 def verify_work(target_logits, draft_tokens, *rest) -> tuple[int, int]:
     """(bytes, operations): the L drafted logit rows of each batch row once
     plus the small operands and outputs; ~4 float32 operations (max, exp,

@@ -64,6 +64,20 @@ def split_plan(q: torch.Tensor, k_cache: torch.Tensor,
     return window_split_plan(B, KV, H // KV, S, n_sm)
 
 
+def bf16_split(q: torch.Tensor, k_cache: torch.Tensor):
+    """``(n_split, split_keys, part, tickets)`` of a bf16 launch on the card
+    (B7, and B9 over int8 rows): ``split_plan`` and, with more than one
+    split, the per-device scratch of its partials (else None, None)."""
+    B, _, D = q.shape
+    KV = k_cache.shape[2]
+    row_tile, _, n_split, split_keys = split_plan(q, k_cache, sm_count(q.device))
+    part = tickets = None
+    if n_split > 1:
+        part, tickets = scratch_for(
+            q.device, B * KV * n_split * row_tile * (D + 2), B * KV)
+    return n_split, split_keys, part, tickets
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"decode_attention_cuda: {msg}")
@@ -102,15 +116,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    n_split, split_keys = 1, 1
-    part = tickets = None
+    n_split, split_keys, part, tickets = 1, 1, None, None
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
-            row_tile, _, n_split, split_keys = split_plan(q, k_cache,
-                                                          sm_count(q.device))
-            if n_split > 1:
-                part, tickets = scratch_for(
-                    q.device, B * KV * n_split * row_tile * (D + 2), B * KV)
+            n_split, split_keys, part, tickets = bf16_split(q, k_cache)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                        lengths.data_ptr(), out.data_ptr(),

@@ -1,16 +1,23 @@
 """Decode attention over an int8 KV cache: the CUDA kernel's wrapper and its
 plain version.
 
-The kernel (``decode_attention_q8_launch`` in ``csrc/decode_attention.cu``,
-the decode attention kernel instantiated on int8 caches) replaces the Pallas
-TPU kernel ``repro.kernels.decode_attention.decode_attention_q8_pallas``:
-one query step of GQA attention over (B, S, KV, D) int8 caches with float32
-scales (B, KV), one per (batch row, kv head), dequantized on the tile load.
-Row b attends ``[0, min(lengths_b, S))``; a row with lengths_b <= 0 returns
-0.  The output has q's dtype.  ``decode_attention_q8_plain`` is the same
-function in plain PyTorch (``ref.decode_attention_quantized_ref``);
-``ops.decode_attention_q8`` picks between the two by the device of the
-tensors, and ``ops.quantize_kv`` makes the caches and scales.
+The kernel (``decode_attention_q8_launch`` in ``csrc/decode_attention.cu``)
+replaces the Pallas TPU kernel
+``repro.kernels.decode_attention.decode_attention_q8_pallas``: one query
+step of GQA attention over (B, S, KV, D) int8 caches with float32 scales
+(B, KV), one per (batch row, kv head).  Row b attends ``[0, min(lengths_b,
+S))``; a row with lengths_b <= 0 returns 0.  The output has q's dtype.
+``decode_attention_q8_plain`` is the same function in plain PyTorch
+(``ref.decode_attention_quantized_ref``); ``ops.decode_attention_q8`` picks
+between the two by the device of the tensors, and ``ops.quantize_kv`` makes
+the caches and scales.
+
+With a bfloat16 q the kernel is bf16 ``decode_attention`` (B7) over int8
+rows: the window body of B1/B3/B6/B7 with the codes turned into bf16 in
+shared memory, ``k_scale`` in the score scale and ``v_scale`` on the
+output, and B7's split of the key axis (``decode_attention.bf16_split``).
+At unit scales it equals B7 on ``codes.to(bfloat16)`` bit for bit.  With a
+float32 q it dequantizes on the tile load of B7's float32 kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import math
 import torch
 
 from . import build
-from .decode_attention import HEAD_DIMS, MAX_GROUP
+from .decode_attention import HEAD_DIMS, MAX_GROUP, bf16_split
 from .ref import decode_attention_quantized_ref as decode_attention_q8_plain
 
 __all__ = ["decode_attention_q8_cuda", "decode_attention_q8_plain", "launches"]
@@ -39,7 +46,7 @@ def _entry():
     if _fn is None:
         fn = build.library("decode_attention").decode_attention_q8_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -88,12 +95,18 @@ def decode_attention_q8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    n_split, split_keys, part, tickets = 1, 1, None, None
     with torch.cuda.device(q.device):
+        if q.dtype == torch.bfloat16:
+            n_split, split_keys, part, tickets = bf16_split(q, k_cache)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                        k_scale.data_ptr(), v_scale.data_ptr(),
-                       lengths.data_ptr(), out.data_ptr(), B, H, KV, D, S,
-                       _DTYPES[q.dtype], 1.0 / math.sqrt(D), stream)
+                       lengths.data_ptr(), out.data_ptr(),
+                       None if part is None else part.data_ptr(),
+                       None if tickets is None else tickets.data_ptr(),
+                       B, H, KV, D, S, n_split, split_keys, _DTYPES[q.dtype],
+                       1.0 / math.sqrt(D), stream)
     build.check(err, "decode_attention_q8")
     launches += 1
     return out

@@ -10,6 +10,12 @@ dense residual distribution to device memory.  It runs once per J=1
 verification round.  ``fused_verify_sample_plain`` is the same function in
 plain PyTorch (``ref.fused_verify_sample_ref``); ``ops.fused_verify_sample``
 picks between the two by the device of the tensors.
+
+The kernel cuts each batch row's vocabulary into ``C`` chunks
+(``vocab_split_plan``, from the shapes and the SM count alone), one block a
+(chunk, row), phases joined by barriers of each row's blocks under a
+cooperative launch;
+``C = 1`` (an ordinary launch, one block a row) once B alone fills the SMs.
 """
 
 from __future__ import annotations
@@ -19,19 +25,25 @@ import ctypes
 import torch
 
 from . import build
+from .paged_attention import scratch_for, sm_count
 from .ref import fused_verify_sample_ref as fused_verify_sample_plain
 
-__all__ = ["fused_verify_sample_cuda", "fused_verify_sample_plain", "launches"]
+__all__ = ["fused_verify_sample_cuda", "fused_verify_sample_plain", "launches",
+           "vocab_split_plan"]
 
 MAX_L = 64
 # the sorted sparse row (8 bytes an entry) shares the 48 KB of shared memory
-# a launch gets with the kernel's static arrays (784 bytes; 1 KB kept)
+# a launch gets with the kernel's static arrays (852 bytes; 1 KB kept)
 MAX_VHAT = (48 * 1024 - 1024) // 8
+# fewest vocab entries a chunk of the split holds (unless V itself is fewer)
+MIN_CHUNK = 64
 
 # kernel launches made through ``fused_verify_sample_cuda``
 launches = 0
 
 _fn = None
+_blocks_fn = None
+_resident: dict[tuple[int, int], int] = {}
 
 
 def _entry():
@@ -41,10 +53,59 @@ def _entry():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 4)
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 6)
         _fn = fn
     return _fn
+
+
+def vocab_split_plan(B: int, V: int, n_sm: int,
+                     resident: int) -> tuple[int, int]:
+    """``(C, chunk)``: each batch row's V entries cut into C chunks of
+    ``chunk`` (the last one shorter), chunk k holding ``[k * chunk, min((k
+    + 1) * chunk, V))``, from the shapes alone.  C is the most chunks that
+    keep B * C within the SMs (one wave) and within ``resident``, the blocks
+    the card holds at once (the cooperative launch's limit), with at least
+    ``MIN_CHUNK`` entries a chunk; so C = 1 once B alone fills the SMs.
+    Every entry lies in exactly one chunk, and none is empty."""
+    want = max(1, min(n_sm, resident) // max(B, 1))
+    n = max(1, min(want, V // MIN_CHUNK))
+    chunk = -(-V // n)
+    return -(-V // chunk), chunk
+
+
+def vocab_split_ranges(V: int, C: int, chunk: int) -> list[tuple[int, int]]:
+    """The vocab range ``[first, end)`` of each chunk, as the kernel walks
+    it."""
+    return [(k * chunk, min(k * chunk + chunk, V)) for k in range(C)]
+
+
+def resident_blocks(device: torch.device, vhat: int) -> int:
+    """Blocks of the kernel the device holds at once with ``vhat`` sparse
+    entries a row (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times
+    the SMs), read once per (device, vhat)."""
+    global _blocks_fn
+    key = (device.index, vhat)
+    if key not in _resident:
+        if _blocks_fn is None:
+            fn = build.library("fused_verify_sample").fused_verify_sample_blocks_per_sm
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            _blocks_fn = fn
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            build.check(_blocks_fn(vhat, ctypes.byref(per_sm)),
+                        "fused_verify_sample occupancy")
+        _resident[key] = per_sm.value * sm_count(device)
+    return _resident[key]
+
+
+def split_plan(target_logits: torch.Tensor, q_idx: torch.Tensor) -> tuple[int, int]:
+    """``vocab_split_plan`` of a call on the card."""
+    B, _, V = target_logits.shape
+    dev = target_logits.device
+    return vocab_split_plan(B, V, sm_count(dev),
+                            resident_blocks(dev, q_idx.shape[-1]))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -91,13 +152,16 @@ def fused_verify_sample_cuda(target_logits, draft_tokens, draft_probs, q_idx,
     if B == 0:
         return accept, n_acc, calibrated
     with torch.cuda.device(dev):
+        C, chunk = split_plan(target_logits, q_idx)
+        scratch, tickets = scratch_for(dev, B * (L * (2 * C + 1) + 3 * C), B)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(target_logits.data_ptr(), B, Lp1, V,
                        draft_tokens.data_ptr(), draft_probs.data_ptr(),
                        q_idx.data_ptr(), q_val.data_ptr(), vhat,
                        u_accept.data_ptr(), u_resid.data_ptr(),
-                       draft_len.data_ptr(), L, accept.data_ptr(),
-                       n_acc.data_ptr(), calibrated.data_ptr(), stream)
+                       draft_len.data_ptr(), L, C, chunk, scratch.data_ptr(),
+                       tickets.data_ptr(), accept.data_ptr(), n_acc.data_ptr(),
+                       calibrated.data_ptr(), stream)
     build.check(err, "fused_verify_sample")
     launches += 1
     return accept, n_acc, calibrated

@@ -13,7 +13,10 @@ bfloat16 plain version itself stays within 2e-2.  ``accept`` and ``n_acc``
 must be equal;
 ``calibrated`` may differ from the plain version only where ``u * Z`` lies
 within rounding of a CDF step (the two sum in different orders), which
-``cases.residual_boundary_ok`` checks in float64.  Tree attention is held
+``cases.residual_boundary_ok`` checks in float64; the verification kernel
+splits the vocabulary across blocks (one chunk a block at B >= the SM
+count), gives the exact tokens on a row of Z = 0 and one where nothing
+crosses, and a second call gives the same bits.  Tree attention is held
 like paged attention; ``gather_softmax_prob`` within 2e-5 relative
 (``cases.GATHER_TOL``); ``residual_sample`` tokens may differ only at a CDF
 step (``cases.cdf_step_ok``).  Contiguous tree attention is held like
@@ -37,7 +40,9 @@ bf16, on grids small enough to split (``cases.TREE_SPLIT_CASES``), where a
 second call must give the same bits.  Int8 decode attention
 (B9) is held like B7 over caches made by ``quantize_kv``, returns 0 for a
 row of length 0, and its wrapper refuses each input the kernel does not
-take.  This file imports no jax.
+take; its bf16 route (the window body over int8 rows) at unit scales
+equals bf16 B7 on the codes bit for bit, split and unsplit, and a second
+call gives the same bits.  This file imports no jax.
 """
 
 import numpy as np
@@ -165,6 +170,39 @@ def test_fused_verify_sample_at_the_sparse_row_limit(cuda):
     over = list(verify_case(1, 2, 20000, fvs.MAX_VHAT + 1, cuda))
     with pytest.raises(ValueError, match="Vhat"):
         fvs.fused_verify_sample_cuda(*over)
+
+
+@pytest.mark.parametrize("B,L,V,vhat", [
+    (1, 8, 32000, 64),        # one row: many chunks
+    (8, 8, 32000, 64),        # llama pair: 16 chunks on an H100
+    (8, 8, 151936, 64),       # qwen3.5 pair
+    (4, 1, 300, 16),          # L = 1, a short vocab
+    (None, 3, 4000, 16),      # B past the SM count: one block a row
+])
+def test_fused_verify_sample_splits_the_vocabulary(cuda, B, L, V, vhat):
+    """The kernel cuts V into the plan's chunks (C = 1 once B fills the
+    SMs): accept and n_acc equal the plain version, calibrated equal or at a
+    CDF step, row 0's residual of Z = 0 gives argmax(p) and row 1's, where
+    nothing crosses, V - 1 (``cases.verify_edge_rows``); one launch a call,
+    and a second call gives the same bits."""
+    n_sm = pa.sm_count(cuda)
+    B = n_sm + 4 if B is None else B
+    args = verify_case(B, L, V, vhat, cuda)
+    if B >= 2:
+        args = cases.verify_edge_rows(args)
+    C, chunk = fvs.split_plan(args[0], args[3])
+    assert (C > 1) == (B < n_sm) and C * chunk >= V > (C - 1) * chunk
+    before = fvs.launches
+    rep, got = compare_verify(args)
+    assert fvs.launches == before + 1
+    assert rep["accept_equal"] and rep["n_acc_equal"], rep
+    assert rep["diff_rows_at_cdf_step"], rep
+    if B >= 2:
+        n_acc, cal = got[1].cpu(), got[2].cpu()
+        assert int(cal[0]) == int(args[1][0, min(int(n_acc[0]), L - 1)])
+        assert int(cal[1]) == V - 1
+    again = fvs.fused_verify_sample_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(cuda):
@@ -792,6 +830,42 @@ def test_decode_attention_q8_kernel_matches_plain(cuda, shape, dtype):
     rtol, atol = cases.PAGED_TOL[dtype]
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
     assert (got.float() - exact.float()).abs().max() < 0.05   # int8 budget
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 32, 4, 64, 1024, (128, 520)),              # draft step: 8 splits
+    (4, 32, 4, 64, 1024, [1, 1024, 1100, 0]),      # 16 splits, a dead row
+    (8, 32, 32, 80, 1024, (128, 160)),             # Zamba2 step: no split
+    (2, 8, 1, 80, 320, [300, 65]),                 # D = 80, split
+    (8, 32, 32, 128, 1024, (127, 190)),            # Llama-2-7B step: no split
+    (2, 32, 4, 128, 1024, [5, 900]),               # D = 128, 16 splits
+])
+def test_decode_attention_q8_bf16_is_b7_on_the_codes(cuda, shape):
+    """bf16 B9 runs B7's window body over int8 rows with B7's split: at
+    unit scales it equals bf16 B7 on ``codes.to(bfloat16)`` bit for bit on
+    every row (dead rows and rows past S included); at the quantizer's
+    scales it is within ``PAGED_TOL`` of the float32 plain version on the
+    live rows, 0 on a dead row, and a second call gives the same bits."""
+    q, kq, vq, ks, vs, ln = cases.q8_case(*shape, dtype=torch.bfloat16,
+                                          device=cuda)
+    B, _, KV, _, S, _ = shape
+    plan = da.split_plan(q, kq, pa.sm_count(cuda))
+    assert (plan[2] > 1) == (B * KV < pa.sm_count(cuda))
+    ones = torch.ones_like(ks)
+    unit = daq.decode_attention_q8_cuda(q, kq, vq, ones, ones, ln)
+    b7 = da.decode_attention_cuda(q, kq.to(torch.bfloat16),
+                                  vq.to(torch.bfloat16), ln)
+    got = daq.decode_attention_q8_cuda(q, kq, vq, ks, vs, ln)
+    want = cases.q8_held(q, kq, vq, ks, vs, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(unit, b7)
+    live = ln > 0
+    rtol, atol = cases.PAGED_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float()[live], want[live], rtol=rtol,
+                               atol=atol)
+    assert not got[~live].any()
+    assert torch.equal(got, daq.decode_attention_q8_cuda(q, kq, vq, ks, vs,
+                                                         ln))
 
 
 def test_decode_attention_q8_returns_zero_for_a_dead_row(cuda):

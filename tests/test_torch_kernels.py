@@ -150,17 +150,23 @@ def test_paged_attention_split_plan_covers_every_slot_once(B, KV, rows, n_slots,
     assert n_split == 1 or split_slots * ps >= tpa.MIN_SPLIT_KEYS
 
 
-def _merge_splits(q, k, v, seen, key_ranges):
+def _merge_splits(q, k, v, seen, key_ranges, k_scale=None, v_scale=None):
     """The bf16 window kernels' partition and merge in plain torch
     (float32), over keys k, v (B, S, KV, D) of which query row t of batch b
     sees ``seen[b, t]``: per key range, the partial (m, l, acc) of the keys
     a row sees, empty (m = -inf, l = 0) where it sees none; then the merge
     the last block makes, in range order, skipping empty partials, 0 for a
-    row that saw no key."""
+    row that saw no key.  The scores' scale is 1/sqrt(D) as a float32;
+    over int8 codes (B9) it is that times ``k_scale`` (B, KV), and the
+    output is multiplied by ``v_scale`` (B, KV), as the kernel does."""
     B, T, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    x = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, G, D), k) / D ** 0.5
+    scale = torch.full((B, KV), D ** -0.5)
+    if k_scale is not None:
+        scale = scale * k_scale
+    x = (torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, KV, G, D), k)
+         * scale[:, :, None, None, None])
     parts = []
     for first, end in key_ranges:
         keys = slice(first, end)
@@ -179,6 +185,8 @@ def _merge_splits(q, k, v, seen, key_ranges):
         L = L + w * l
         A = A + w[..., None] * acc
     out = torch.where(L[..., None] > 0, A / L.clamp(min=1e-30)[..., None], 0.0)
+    if v_scale is not None:
+        out = out * v_scale[:, :, None, None, None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D)
 
 
@@ -577,6 +585,132 @@ def test_fused_verify_sample_plain_matches_jax_ref(B, L, V, vhat, dlen, seed):
     acc = got[0].numpy()
     for b, n in enumerate(dlen):
         assert not acc[b, n:].any()
+
+
+# (B, V, SMs, resident blocks, C): the Llama and Qwen3.5 pairs on an H100
+# (B = 8: 16 chunks), one row (132 chunks, V not a multiple of C), B at and
+# past the SM count (C = 1), a resident count under the wish, V short of
+# the wish (V < C: 1 chunk), V shorter than a chunk, the card tests' V = 300
+VOCAB_SPLIT_SHAPES = [
+    (8, 32000, 132, 1056, 16), (8, 151936, 132, 1056, 16),
+    (1, 32000, 132, 1056, 132), (132, 32000, 132, 1056, 1),
+    (300, 32000, 132, 1056, 1), (8, 32000, 132, 40, 5),
+    (1, 100, 132, 1056, 1), (1, 5, 132, 1056, 1), (1, 300, 132, 1056, 4),
+    (3, 257, 132, 1056, 4), (4, 20000, 132, 528, 33),
+]
+
+
+@pytest.mark.parametrize("B,V,n_sm,resident,C", VOCAB_SPLIT_SHAPES)
+def test_vocab_split_plan_covers_every_entry_once(B, V, n_sm, resident, C):
+    """B2's chunks of the vocabulary come from shapes alone, cover [0, V)
+    exactly once in order, none empty; B x C stays within one wave of the
+    SMs and within the resident blocks (the cooperative launch's limit),
+    so C = 1 once B alone fills the SMs."""
+    plan = tfvs.vocab_split_plan(B, V, n_sm, resident)
+    got_c, chunk = plan
+    assert got_c == C
+    ranges = tfvs.vocab_split_ranges(V, got_c, chunk)
+    assert [v for a, e in ranges for v in range(a, e)] == list(range(V))
+    assert all(e > a for a, e in ranges)
+    assert got_c == 1 or B * got_c <= min(n_sm, resident)
+    assert (got_c == 1) >= (B >= n_sm)
+    assert got_c == 1 or chunk >= tfvs.MIN_CHUNK
+
+
+def _fused_split_emulated(args, C, chunk):
+    """B2's split across the vocabulary in plain torch (float32): per chunk
+    the softmax partial (m, s) of every drafted row, merged in chunk order;
+    the accept test and prefix count; per chunk the residual mass of row
+    sel and its argmax(p); the masses added in chunk order (Z); Z <= 0 gives
+    the merged argmax; else the chunk whose prefix crosses u * Z scans its
+    entries from the masses before it (its last positive entry should its
+    own sums fall short); no crossing gives V - 1."""
+    logits, tokens, probs, q_idx, q_val, u_acc, u_res, dlen = args
+    B, L = tokens.shape
+    V = logits.shape[-1]
+    ranges = tfvs.vocab_split_ranges(V, C, chunk)
+    x = logits[:, :L]
+    m = torch.stack([x[..., a:e].amax(-1) for a, e in ranges], -1)
+    s = torch.stack([torch.exp(x[..., a:e] - m[..., i, None]).sum(-1)
+                     for i, (a, e) in enumerate(ranges)], -1)
+    M = m.amax(-1)
+    Z = torch.zeros_like(M)
+    for i in range(C):
+        Z = Z + s[..., i] * torch.exp(m[..., i] - M)
+    p_t = torch.exp(x.gather(-1, tokens.long()[..., None])[..., 0] - M) / Z
+    accept = u_acc < torch.clamp(p_t / torch.clamp(probs, min=1e-30), max=1.0)
+    accept &= torch.arange(L)[None] < dlen.long()[:, None]
+    n_acc = torch.cumprod(accept.int(), -1).sum(-1).int()
+    calibrated = torch.empty(B, dtype=torch.int32)
+    for b in range(B):
+        sel = min(int(n_acc[b]), L - 1)
+        p = torch.exp(x[b, sel] - M[b, sel]) / Z[b, sel]
+        q = torch.zeros(V).index_add_(0, q_idx[b, sel].long(), q_val[b, sel])
+        r = torch.clamp(p - q, min=0.0)
+        mass = [r[a:e].sum() for a, e in ranges]
+        zr = torch.zeros(())
+        for w in mass:
+            zr = zr + w
+        if zr <= 0:
+            best = [(p[a:e].max(), a + int(p[a:e].argmax())) for a, e in ranges]
+            token = best[0]
+            for cand in best[1:]:
+                if cand[0] > token[0]:
+                    token = cand
+            calibrated[b] = token[1]
+            continue
+        target = u_res[b] * zr
+        run, cross = torch.zeros(()), None
+        for i, w in enumerate(mass):
+            if run + w > target:
+                cross = i
+                break
+            run = run + w
+        if cross is None:
+            calibrated[b] = V - 1
+            continue
+        a, e = ranges[cross]
+        hit = ((run + torch.cumsum(r[a:e], 0)) > target).nonzero()
+        calibrated[b] = a + int(hit[0] if len(hit)
+                                else (r[a:e] > 0).nonzero()[-1])
+    return accept, n_acc, calibrated
+
+
+@pytest.mark.parametrize("B,L,V,vhat,n_sm", [
+    (3, 4, 512, 16, 132),      # 8 chunks of 64
+    (4, 5, 1000, 32, 132),     # 15 chunks of 67: V not a multiple of C
+    (1, 3, 2048, 8, 132),      # one row: 32 chunks
+    (4, 4, 300, 16, 2),        # B past the SMs: C = 1
+    (8, 8, 4000, 64, 132),     # the Llama pair's B, L and Vhat: 16 chunks
+])
+@pytest.mark.parametrize("seed", [30, 31])
+def test_fused_verify_split_arithmetic_matches_jax_ref(B, L, V, vhat, n_sm,
+                                                       seed):
+    """B2's split arithmetic, emulated in plain torch, against the JAX
+    oracle: accept and n_acc equal, the calibrated token equal or at a CDF
+    step (``cases.residual_boundary_ok``); with B >= 2 rows 0 and 1 carry a
+    residual of Z = 0 (the token is argmax(p)) and one where nothing
+    crosses (V - 1) (``cases.verify_edge_rows``)."""
+    arrs = _fused_inputs(seed, B, L, V, vhat)
+    dlen = np.random.default_rng(seed).integers(1, L + 1, B).astype(np.int32)
+    args = tuple(map(torch.from_numpy, (*arrs, dlen)))
+    if B >= 2:
+        args = cases.verify_edge_rows(args)
+    C, chunk = tfvs.vocab_split_plan(B, V, n_sm, 32 * n_sm)
+    assert (C > 1) == (B < n_sm)
+    got = _fused_split_emulated(args, C, chunk)
+    want = [torch.from_numpy(np.array(w)) for w in
+            jref.fused_verify_sample_ref(*(jnp.asarray(a.numpy())
+                                           for a in args))]
+    assert torch.equal(got[0], want[0].bool())
+    assert torch.equal(got[1], want[1].int())
+    for b in (got[2] != want[2].int()).nonzero().flatten().tolist():
+        assert cases.residual_boundary_ok([a[b] for a in args], int(got[1][b]),
+                                          int(got[2][b]), int(want[2][b]))
+    if B >= 2:
+        sel = min(int(got[1][0]), L - 1)
+        assert int(got[2][0]) == int(want[2][0]) == int(args[1][0, sel])
+        assert int(got[2][1]) == int(want[2][1]) == V - 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

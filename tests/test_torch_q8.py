@@ -14,6 +14,10 @@ float32), a row past S attends exactly S keys (as the oracle; the Pallas
 kernel also attends its zero padding when S is not a multiple of its
 block), and a row of length 0 is the oracle's mean in the plain version
 and 0 in the Pallas kernel (the CUDA kernel returns 0, tested on the card).
+The bf16 CUDA route's arithmetic (B7's window body over the codes as
+bf16, ``k_scale`` in the score scale, ``v_scale`` on the output, B7's split
+of the key axis) is emulated in plain torch and held against the oracle; at
+unit scales it is the B7 emulation on the codes, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -24,7 +28,10 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_q8_pallas
 from repro_torch.kernels import cases
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from test_torch_kernels import _merge_splits
 
 JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
@@ -182,3 +189,45 @@ def test_quantize_a_prefilled_bf16_cache_slab():
         assert k.dtype == torch.bfloat16 and k.is_contiguous()
         assert k[:, :9].abs().amax() > 0 and not k[:, 9:].any()
         _assert_same_quantization(k, v)
+
+
+# name, (B, H, KV, D, S), lengths, SMs: B9's bf16 grids, split (fewer
+# blocks than SMs) and not
+Q8_SPLIT_CASES = [
+    ("split, a row of length 0", (3, 8, 2, 16, 256), [0, 200, 37], 132),
+    ("split, lengths past S", (2, 8, 4, 32, 192), [250, 192], 132),
+    ("split, G = 8 at D = 80", (2, 8, 1, 80, 320), [300, 65], 132),
+    ("no split at D = 128", (3, 4, 2, 128, 130), [130, 1, 64], 4),
+]
+
+
+@pytest.mark.parametrize("case", Q8_SPLIT_CASES,
+                         ids=[c[0] for c in Q8_SPLIT_CASES])
+def test_q8_window_arithmetic_matches_jax_oracle(case):
+    """The bf16 route of B9 in plain torch: the int8 codes as bf16 (exact),
+    ``k_scale`` joined to the score scale, ``v_scale`` on the output, B7's
+    split plan and merge (``_merge_splits``).  Against the JAX oracle:
+    within the float32 band, and within the bf16 band once the output is
+    rounded to bf16 as the kernel stores it; a row of length 0 gives 0.  At
+    unit scales it equals the B7 emulation on the codes bit for bit."""
+    name, (B, H, KV, D, S), lengths, n_sm = case
+    q, k, v, ln = _inputs(B, S, H, KV, D, lengths, torch.bfloat16,
+                          seed=len(name))
+    kq, ks, vq, vs = tops.quantize_kv(k, v)
+    _, _, n_split, split_keys = tda.split_plan(q, kq, n_sm)
+    assert (n_split > 1) == (B * KV < n_sm)
+    ranges = tpa.window_split_ranges(S, n_split, split_keys)
+    seen = (torch.arange(S)[None] < ln.long()[:, None])[:, None]
+    qf = q.float()[:, None]
+    kc, vc = (c.to(torch.bfloat16).float() for c in (kq, vq))
+    got = _merge_splits(qf, kc, vc, seen, ranges, ks, vs)[:, 0]
+    live = ln > 0
+    want = _np(jref.decode_attention_quantized_ref(
+        *(_jax(t) for t in (q, kq, vq, ks, vs, ln))))[live.numpy()]
+    np.testing.assert_allclose(got[live].numpy(), want, **TOL[torch.float32])
+    np.testing.assert_allclose(got.to(torch.bfloat16).float()[live].numpy(),
+                               want, **TOL[torch.bfloat16])
+    assert not got[~live].any()
+    ones = torch.ones_like(ks)
+    assert torch.equal(_merge_splits(qf, kc, vc, seen, ranges, ones, ones),
+                       _merge_splits(qf, kc, vc, seen, ranges))

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Time the port's attention and scan kernels of one checkout on the card,
-to compare two commits within one call.
+"""Time the port's attention, scan and verification kernels of one checkout
+on the card, to compare two commits within one call.
 
     python3 tools/window_times.py <checkout root> <label> [kernel ...]
 
 Kernels (default: all): ``paged_attention`` (B1), ``paged_tree_attention``
 (B3), ``tree_attention`` (B6), ``decode_attention`` (B7),
-``decode_attention_q8`` (B9), ``ssd_scan`` (B10).  Builds them from
+``decode_attention_q8`` (B9), ``ssd_scan`` (B10), ``fused_verify_sample``
+(B2).  Builds them from
 ``<checkout root>/src/repro_torch/csrc`` (into that checkout's ``build/``),
 prints their ptxas lines, and times each at the phase-3 shapes of that
 checkout's ``chip_smoke.py`` (``PAGED_CASES`` and
 ``cases.PAGED_EDGE_CASES`` for B1, ``TREE_CASES`` for B3,
 ``CONTIGUOUS_TREE_CASES`` for B6, ``DECODE_CASES`` for B7, ``Q8_CASES`` for
-B9, ``SSD_CASES`` for B10), float32 and bfloat16: kernel ms and, where one
+B9, ``SSD_CASES`` for B10, float32 and bfloat16; ``VERIFY_CASES`` for B2,
+float32): kernel ms and, where one
 PyTorch call computes the same function, that call's ms (SDPA;
 ``cases.time_ms``), one line a case.  Run one process per checkout (``.``,
 or another commit unpacked with ``git archive`` into a directory that
@@ -23,7 +25,8 @@ CUDA card.
 import sys
 
 KERNELS = ("paged_attention", "paged_tree_attention", "tree_attention",
-           "decode_attention", "decode_attention_q8", "ssd_scan")
+           "decode_attention", "decode_attention_q8", "ssd_scan",
+           "fused_verify_sample")
 
 
 def main(root: str, label: str, names) -> None:
@@ -35,6 +38,7 @@ def main(root: str, label: str, names) -> None:
     from repro_torch.kernels import build, cases
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import decode_attention_q8 as daq
+    from repro_torch.kernels import fused_verify_sample as fvs
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_tree_attention as pta
     from repro_torch.kernels import ssd_scan as ssd
@@ -99,6 +103,15 @@ def main(root: str, label: str, names) -> None:
             report("ssd_scan", name, dtype,
                    lambda: ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
                                              initial_state=st))
+    # (name, shape) in checkouts before the edge-row case, then (name,
+    # shape, edge); the edge rows change no time, so only shapes are timed
+    for case in cs.VERIFY_CASES * ("fused_verify_sample" in names):
+        name, (B, L, V, vhat) = case[:2]
+        if len(case) > 2 and case[2]:
+            continue
+        args = cases.verify_case(B, L, V, vhat, "cuda")
+        report("fused_verify_sample", name, torch.float32,
+               lambda: fvs.fused_verify_sample_cuda(*args))
 
 
 if __name__ == "__main__":
