@@ -22,8 +22,15 @@ package.  Phases (none catches a failure):
      printed beside it; paged attention also at the edges of its split
      slot axis (``cases.PAGED_EDGE_CASES``), with the split printed; a
      chain-masked tree window must also match paged attention at lengths + 1
-     within ``cases.PAGED_TOL``.  The samplers must agree except
-     where ``u * Z`` lies within rounding of a CDF step (float64 check);
+     within ``cases.PAGED_TOL``.  The samplers (B4, B5) are printed with
+     their split of the vocabulary (chunks a row) at the path shapes and
+     at unaligned V (4097, 300, 1), each called again after a split B1
+     launch (the same tickets: the same bits); B4 is held on relative
+     error (``cases.GATHER_TOL``) and timed beside ``cross_entropy`` (-log
+     of the same value, not the same function); B5's tokens must agree
+     except where ``u * Z`` lies within rounding of a CDF step (float64
+     check), its Z = 0 row give argmax(p), the first of two maxima tied
+     across chunks, and its no-crossing row V - 1;
      the verification kernel (B2) is printed with its split of the
      vocabulary (chunks a row), called twice (the same bits), and also run
      with a row whose residual is all zero (the token must be argmax(p))
@@ -108,10 +115,11 @@ package.  Phases (none catches a failure):
      each layer held against its plain version within ``cases.PAGED_TOL``
      and against B7 on the bf16 slab, and the bytes of both slabs
  11. summary lines: each profiled path's device busy, wall and idle share
-     per round or step; per path, the launches of B3, B6, B1, B7 and B2
-     per round or step (counters) beside their profiled calls and device ms;
-     then one ``{"kernels": [...]}`` JSON line (each kernel with the design
-     its bf16 route moved to, if any), the card line, and as the last line
+     per round or step; per path, the launches of B3, B6, B1, B7, B2, B4
+     and B5 per round or step (counters) beside their profiled calls and
+     device ms; then one ``{"kernels": [...]}`` JSON line (each kernel with
+     the design it, or its bf16 route, moved to), the card line, and as the
+     last line
      ``{"ok": true, "device": {...}}``
 
 Each path's counters are set to 0 just before its engine's ``start()`` and
@@ -157,11 +165,25 @@ TREE_CASES = [
     ("llama2-7b chain T=13", (8, 2, 6, 32, 32, 128, 16, 512), True),
 ]
 TREE_HEADLINE = ("llama2-7b tree window J=2 L=6", "bfloat16")
-SOFTMAX_CASES = [("tree nodes J=2 L=6", (96, 32000)),
-                 ("ceiling J=6 L=8", (384, 32000)),
-                 ("qwen3.5 vocab", (96, 151936))]
+SOFTMAX_CASES = [
+    # name, (N, V): the path's shapes, then the edges of the vocab split
+    ("tree nodes J=2 L=6", (96, 32000)),
+    ("ceiling J=6 L=8", (384, 32000)),
+    ("qwen3.5 vocab", (96, 151936)),
+    ("unaligned rows V=4097", (5, 4097)),
+    ("V=300, one chunk", (5, 300)),
+    ("V=1", (3, 1)),
+]
 SOFTMAX_HEADLINE = "tree nodes J=2 L=6"
-RESIDUAL_CASES = [("llama vocab", (8, 32000)), ("qwen3.5 vocab", (8, 151936))]
+RESIDUAL_CASES = [
+    # name, (N, V): rows 0-2 at Z = 0, a tie of p's maxima, no crossing
+    ("llama vocab", (8, 32000)),
+    ("qwen3.5 vocab", (8, 151936)),
+    ("unaligned rows V=4097", (5, 4097)),
+    ("V=300, one chunk", (5, 300)),
+    ("V=1", (3, 1)),
+    ("rows past the SMs", (136, 32000)),
+]
 RESIDUAL_HEADLINE = "llama vocab"
 CONTIGUOUS_ROUNDS = 16
 HYBRID_ROUNDS = 16
@@ -344,9 +366,9 @@ def check_kernels(torch, cases, pa, fvs):
     return paged, verify
 
 
-def check_tree_kernels(torch, cases, pa, pta, gsp, rs):
-    """Phase 3, the tree round's kernels against their plain versions;
-    returns (tree, softmax, residual) records."""
+def check_tree_kernels(torch, cases, pa, pta):
+    """Phase 3, paged tree attention (B3) against its plain version; returns
+    records."""
     tree = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     runs = [(name, dict(zip("B J L H KV D ps ctx".split(), shape)), chain,
@@ -426,75 +448,117 @@ def check_tree_kernels(torch, cases, pa, pta, gsp, rs):
         raise AssertionError("paged_tree_attention accepted a 65-token window")
     except ValueError as e:
         log(f"paged_tree_attention T=65 refused: {e}")
+    return tree
 
+
+def check_samplers(torch, cases, pa, fvs, gsp, rs):
+    """Phase 3, the samplers (B4, B5) against their plain versions at the
+    path shapes and the edges of their vocabulary split: each case printed
+    with its chunks a row, called again after a split B1 launch (the same
+    tickets; the same bits); B4 beside ``cross_entropy`` (-log of the same
+    value: not the same function); B5's Z = 0 row must give the first argmax
+    of p (a tie across two chunks when split) and its no-crossing row
+    V - 1.  Returns (softmax, residual) records."""
+    b1_split = cases.paged_case(8, 1, 32, 4, 64, 16, 512, torch.bfloat16,
+                                "cuda", width=64)
+    cross_entropy = torch.nn.functional.cross_entropy
     softmax = []
     rtol, atol = cases.GATHER_TOL
     for name, (N, V) in SOFTMAX_CASES:
         logits, ids = cases.softmax_case(N, V, "cuda")
+        n_chunks, chunk = fvs.row_split_plan(N, V, pa.sm_count(logits.device))
         got = gsp.gather_softmax_prob_cuda(logits, ids)
         want = gsp.gather_softmax_prob_plain(logits, ids)
+        pa.paged_attention_cuda(*b1_split)
+        again = gsp.gather_softmax_prob_cuda(logits, ids)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
         n_bytes, n_ops = cases.softmax_work(logits, ids)
         bound_ms, bound_by = cases.bound(n_bytes, n_ops, torch.float32)
+        ids_long = ids.long()
         rec = {
-            "case": name, "shape": {"N": N, "V": V}, "max_abs_err": err,
-            "max_rel_err": rel, "rtol": rtol, "atol": atol,
+            "case": name, "shape": {"N": N, "V": V},
+            "vocab_split": {"chunks": n_chunks, "chunk": chunk},
+            "second_call_equal": bool(torch.equal(got, again)),
+            "max_abs_err": err, "max_rel_err": rel, "rtol": rtol, "atol": atol,
             "ms": cases.time_ms(lambda: gsp.gather_softmax_prob_cuda(logits, ids)),
             "plain_ms": cases.time_ms(
                 lambda: gsp.gather_softmax_prob_plain(logits, ids), iters=10),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "cross_entropy_ms_not_same_function": cases.time_ms(
+                lambda: cross_entropy(logits, ids_long, reduction="none")),
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "ops": n_ops,
         }
-        log(f"gather_softmax_prob {name:22s} N={N} V={V}  max|err| {err:.3e} "
-            f"(rel {rel:.3e}; rtol {rtol}, atol {atol})  kernel {rec['ms']:.4f} ms  "
-            f"plain {rec['plain_ms']:.4f} ms  library none  "
+        log(f"gather_softmax_prob {name:22s} N={N} V={V} ({n_chunks} chunks of "
+            f"{chunk} a row, {N * n_chunks} blocks)  max|err| {err:.3e} "
+            f"(rel {rel:.3e}; rtol {rtol}, atol {atol})  second call equal "
+            f"{rec['second_call_equal']}  kernel {rec['ms']:.4f} ms  "
+            f"plain {rec['plain_ms']:.4f} ms  library none; cross_entropy "
+            f"(-log of the same value, not the same function) "
+            f"{rec['cross_entropy_ms_not_same_function']:.4f} ms  "
             f"bound {bound_ms:.4f} ms ({bound_by})")
         if not torch.allclose(got, want, rtol=rtol, atol=atol):
             raise AssertionError(f"gather_softmax_prob {name}: max|err| {err}, "
                                  f"max relative err {rel}")
+        if not rec["second_call_equal"]:
+            raise AssertionError(f"gather_softmax_prob {name}: a second call "
+                                 f"gave other bits")
         softmax.append(rec)
 
     residual = []
     for name, (N, V) in RESIDUAL_CASES:
         p, q, u = cases.residual_case(N, V, "cuda")
+        n_chunks, chunk = fvs.row_split_plan(N, V, pa.sm_count(p.device))
         got = rs.residual_sample_cuda(p, q, u)
         want = rs.residual_sample_plain(p, q, u)
+        pa.paged_attention_cuda(*b1_split)
+        again = rs.residual_sample_cuda(p, q, u)
         torch.cuda.synchronize()
         rep = cases.compare_residual(got, want, p, q, u)
         z = (p - q).clamp(min=0).sum(-1).cpu()
+        tied = (p[1] == p[1].max()).nonzero().flatten().cpu().tolist()
         n_bytes, n_ops = cases.residual_work(p, q, u, want)
         bound_ms, bound_by = cases.bound(n_bytes, n_ops, torch.float32)
         rec = {
             "case": name, "shape": {"N": N, "V": V},
+            "vocab_split": {"chunks": n_chunks, "chunk": chunk},
+            "second_call_equal": bool(torch.equal(got, again)),
             "max_abs_err": rep["max_abs_err"], "equal_rows": rep["equal_rows"],
             "diff_rows": rep["diff_rows"],
             "diff_rows_at_cdf_step": rep["diff_rows_at_cdf_step"],
             "rows_zero_residual": int((z <= 0).sum()),
             "rows_no_crossing": int((u.cpu() >= 1).sum()),
+            "tie_across_chunks": (len(tied) == 2
+                                  and tied[0] // chunk != tied[1] // chunk),
             "ms": cases.time_ms(lambda: rs.residual_sample_cuda(p, q, u)),
             "plain_ms": cases.time_ms(lambda: rs.residual_sample_plain(p, q, u),
                                       iters=10),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "ops": n_ops,
         }
-        log(f"residual_sample {name:16s} N={N} V={V}  equal {rep['equal_rows']}/{N} "
-            f"(differing rows {rep['diff_rows']} at a CDF step: "
-            f"{rep['diff_rows_at_cdf_step']})  Z=0 rows {rec['rows_zero_residual']}  "
-            f"no-crossing rows {rec['rows_no_crossing']}  kernel {rec['ms']:.4f} ms  "
+        log(f"residual_sample {name:22s} N={N} V={V} ({n_chunks} chunks of "
+            f"{chunk} a row, {N * n_chunks} blocks)  equal "
+            f"{rep['equal_rows']}/{N} (differing rows {rep['diff_rows']} at a "
+            f"CDF step: {rep['diff_rows_at_cdf_step']})  Z=0 rows "
+            f"{rec['rows_zero_residual']} (tie across chunks "
+            f"{rec['tie_across_chunks']})  no-crossing rows "
+            f"{rec['rows_no_crossing']}  second call equal "
+            f"{rec['second_call_equal']}  kernel {rec['ms']:.4f} ms  "
             f"plain {rec['plain_ms']:.4f} ms  library none  "
             f"bound {bound_ms:.4f} ms ({bound_by})")
         tok = got.cpu()
-        if not rep["diff_rows_at_cdf_step"]:
-            raise AssertionError(f"residual_sample {name}: {rep}")
+        if not rep["diff_rows_at_cdf_step"] or not rec["second_call_equal"]:
+            raise AssertionError(f"residual_sample {name}: {rep}, second call "
+                                 f"equal {rec['second_call_equal']}")
         if not (int(tok[0]) == int(p[0].argmax()) and int(tok[2]) == V - 1
-                and int(tok[1]) == int(p[1].argmax())):
+                and int(tok[1]) == int(p[1].argmax()) == tied[0]):
             raise AssertionError(f"residual_sample {name}: the Z = 0 rows must "
                                  f"give the first argmax of p and the row "
                                  f"where nothing crosses V - 1: {tok.tolist()}")
         residual.append(rec)
-    return tree, softmax, residual
+    return softmax, residual
 
 
 def check_contiguous_kernels(torch, cases, pa, pta, ta, ssd):
@@ -1193,13 +1257,15 @@ def profile_rounds(torch, step, n, label, unit="round"):
 
 
 def window_op(kernel_name):
-    """The op of the port's window attention kernels (B1, B3, B6, B7, B9)
-    or of the verification kernel (B2) that a profiler key names, else
+    """The op of the port's window attention kernels (B1, B3, B6, B7, B9),
+    of the verification kernel (B2) or of the samplers (B4, B5) that a
+    profiler key names, else
     None: the bf16 body of ``csrc/window_attention_bf16.cuh`` is told apart
     by its key locator and mask policy, the float32 kernels by their
     names."""
-    if "fused_verify_sample_kernel" in kernel_name:
-        return "fused_verify_sample"
+    for op in ("fused_verify_sample", "gather_softmax_prob", "residual_sample"):
+        if f"{op}_kernel" in kernel_name:
+            return op
     if ("ContiguousCodes" in kernel_name
             or "::decode_attention_kernel<float, signed char" in kernel_name):
         return "decode_attention_q8"
@@ -1397,7 +1463,8 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     paged, verify = check_kernels(torch, cases, pa, fvs)
-    tree, softmax, residual = check_tree_kernels(torch, cases, pa, pta, gsp, rs)
+    tree = check_tree_kernels(torch, cases, pa, pta)
+    softmax, residual = check_samplers(torch, cases, pa, fvs, gsp, rs)
     ctree, scan = check_contiguous_kernels(torch, cases, pa, pta, ta, ssd)
     decode, flash = check_decode_kernels(torch, cases, pa, ta, da, fa)
     q8 = check_q8_kernel(torch, cases, pa, da, daq)
@@ -1476,7 +1543,8 @@ def main() -> int:
         prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
         parts = []
         for op in ("paged_tree_attention", "tree_attention", "paged_attention",
-                   "decode_attention", "fused_verify_sample"):
+                   "decode_attention", "fused_verify_sample",
+                   "gather_softmax_prob", "residual_sample"):
             n = counts[op]["kernel"] - start[op]["kernel"]
             if n:
                 ms, calls = prof.get(op, (0.0, 0.0))
@@ -1493,8 +1561,8 @@ def main() -> int:
                     and (dtype is None or r["dtype"] == dtype))
 
     def entry(name, source, replaces, rec, recs, redesigned=None):
-        """One kernel of the line; ``redesigned`` names what its bf16 route
-        runs when that is a later design than the first port."""
+        """One kernel of the line; ``redesigned`` names what it (or its
+        bf16 route) runs when that is a later design than the first port."""
         per_round = {path: (counts[name]["kernel"] - start[name]["kernel"])
                      / len(rounds)
                      for path, (counts, rounds, start) in runs.items()
@@ -1535,10 +1603,14 @@ def main() -> int:
               redesigned="bf16: the window body, tree mask, split key axis"),
         entry("gather_softmax_prob", f"{csrc}/gather_softmax_prob.cu",
               f"{tpu}/gather_softmax_prob.py:75",
-              pick(softmax, SOFTMAX_HEADLINE), softmax),
+              pick(softmax, SOFTMAX_HEADLINE), softmax,
+              redesigned="vocab axis split across blocks, 16-byte loads, the "
+              "last block of a row merges the partials in a fixed order"),
         entry("residual_sample", f"{csrc}/residual_sample.cu",
               f"{tpu}/residual_sample.py:91", pick(residual, RESIDUAL_HEADLINE),
-              residual),
+              residual, redesigned="vocab axis split across blocks, 16-byte "
+              "loads, the last block of a row adds the masses in chunk order "
+              "and scans the crossing chunk"),
         entry("tree_attention", f"{csrc}/tree_attention.cu",
               f"{tpu}/tree_attention.py:145",
               pick(ctree, *CONTIGUOUS_TREE_HEADLINE), ctree,

@@ -460,15 +460,15 @@ def softmax_work(logits, ids) -> tuple[int, int]:
 
 def residual_case(N, V, device, seed=0, vhat=64):
     """(p, q, u) float32 rows of the calibrated-token step: p a softmax
-    row, q a dense row scattered from a top-``vhat`` draft distribution (as
-    ``verify_tree`` builds it), u uniform.  Row 0 has q == p (Z = 0:
-    argmax(p)), row 1 has two tied maxima of p and q == p (the first index
-    wins), row 2 has u = 1.5 so nothing crosses (V - 1); the rest reject
-    with a live residual."""
+    row, q a dense row scattered from a top-``vhat`` (at most V) draft
+    distribution (as ``verify_tree`` builds it), u uniform.  Row 0 has
+    q == p (Z = 0: argmax(p)), row 1 has two tied maxima of p half a row
+    apart and q == p (the first index wins), row 2 has u = 1.5 so nothing
+    crosses (V - 1); the rest reject with a live residual."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     p = torch.softmax(torch.randn((N, V), generator=g) * 3, -1)
     d = torch.softmax(torch.randn((N, V), generator=g) * 3, -1)
-    val, idx = d.topk(vhat, -1)
+    val, idx = d.topk(min(vhat, V), -1)
     q = torch.zeros_like(p).scatter_add_(1, idx, val / val.sum(-1, keepdim=True))
     u = torch.rand((N,), generator=g)
     q[0] = p[0]

@@ -29,7 +29,7 @@ from .paged_attention import scratch_for, sm_count
 from .ref import fused_verify_sample_ref as fused_verify_sample_plain
 
 __all__ = ["fused_verify_sample_cuda", "fused_verify_sample_plain", "launches",
-           "vocab_split_plan"]
+           "row_split_plan", "vocab_split_plan"]
 
 MAX_L = 64
 # the sorted sparse row (8 bytes an entry) shares the 48 KB of shared memory
@@ -78,6 +78,31 @@ def vocab_split_ranges(V: int, C: int, chunk: int) -> list[tuple[int, int]]:
     """The vocab range ``[first, end)`` of each chunk, as the kernel walks
     it."""
     return [(k * chunk, min(k * chunk + chunk, V)) for k in range(C)]
+
+
+# blocks a SM the split of the two sampler kernels (gather_softmax_prob,
+# residual_sample) aims at: where the attention splits gained
+ROW_BLOCKS_PER_SM = 2
+# fewest vocab entries a sampler chunk holds (unless V itself is fewer):
+# one entry a thread of their 256-thread blocks
+ROW_MIN_CHUNK = 256
+
+
+def row_split_plan(N: int, V: int, n_sm: int) -> tuple[int, int]:
+    """``(C, chunk)`` of ``gather_softmax_prob`` and ``residual_sample``:
+    each of the N rows' V entries cut into C chunks of ``chunk`` (a multiple
+    of 4, so a 16-byte-aligned row stays aligned at every chunk edge; the
+    last chunk shorter), walked as ``vocab_split_ranges`` gives them, from
+    the shapes alone.  N * C is about ``ROW_BLOCKS_PER_SM`` blocks a SM, one
+    wave, with at least ``ROW_MIN_CHUNK`` entries a chunk; so C = 1 once the
+    N rows outnumber the SMs (at 2 blocks a SM).  No block waits for
+    another (the last of a row to finish merges), so no resident-block cap
+    applies.  Every entry lies in exactly one chunk, and none is empty."""
+    want = max(1, ROW_BLOCKS_PER_SM * n_sm // max(N, 1))
+    n = max(1, min(want, V // ROW_MIN_CHUNK))
+    chunk = -(-V // n)
+    chunk = -(-chunk // 4) * 4
+    return -(-V // chunk), chunk
 
 
 def resident_blocks(device: torch.device, vhat: int) -> int:

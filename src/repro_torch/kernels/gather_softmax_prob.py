@@ -9,6 +9,13 @@ tree node (``verify_tree``) and in the dense branch of ``verify_drafts``.
 ``gather_softmax_prob_plain`` is the same function in plain PyTorch
 (``ref.gather_softmax_prob_ref``); ``ops.gather_softmax_prob`` picks between
 the two by the device of the tensors.
+
+The kernel cuts each row's vocabulary into ``C`` chunks
+(``fused_verify_sample.row_split_plan``, from the shapes and the SM count
+alone), one block a (row, chunk); the last block of a row to finish merges
+the chunks' partials (a ticket per row in ``scratch_for``'s buffers) in the
+same ordinary launch.  ``C = 1`` (one block a row, no scratch) once the rows
+outnumber the SMs.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import ctypes
 import torch
 
 from . import build
+from .fused_verify_sample import row_split_plan
+from .paged_attention import scratch_for, sm_count
 from .ref import gather_softmax_prob_ref as gather_softmax_prob_plain
 
 __all__ = ["gather_softmax_prob_cuda", "gather_softmax_prob_plain", "launches"]
@@ -33,7 +42,7 @@ def _entry():
     if _fn is None:
         fn = build.library("gather_softmax_prob").gather_softmax_prob_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         _fn = fn
     return _fn
 
@@ -63,10 +72,16 @@ def gather_softmax_prob_cuda(logits: torch.Tensor,
     if N == 0:
         return out
     _check(V >= 1, "empty vocabulary")
-    with torch.cuda.device(logits.device):
+    dev = logits.device
+    with torch.cuda.device(dev):
+        C, chunk = row_split_plan(N, V, sm_count(dev))
+        part = tickets = None
+        if C > 1:
+            part, tickets = scratch_for(dev, 2 * N * C, N)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(logits.data_ptr(), token_ids.data_ptr(), out.data_ptr(),
-                       N, V, stream)
+                       N, V, C, chunk, None if part is None else part.data_ptr(),
+                       None if tickets is None else tickets.data_ptr(), stream)
     build.check(err, "gather_softmax_prob")
     launches += 1
     return out

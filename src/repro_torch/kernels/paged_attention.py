@@ -135,7 +135,7 @@ def sm_count(device: torch.device) -> int:
 def scratch_for(device: torch.device, n_floats: int,
                 n_tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-device split scratch of the bf16 window kernels (B1, B3, B6,
-    B7, B9) and of ``fused_verify_sample`` (B2):
+    B7, B9), of ``fused_verify_sample`` (B2) and of the samplers (B4, B5):
     at least ``n_floats`` float32 partials and ``n_tickets`` int32 tickets,
     grown as needed.  Every launch leaves its tickets at 0, and launches on
     one stream use the buffers in turn."""

@@ -10,6 +10,13 @@ does.  It runs once per tree round (``verify_tree``) and in the dense branch
 of ``verify_drafts``.  ``residual_sample_plain`` is the same function in
 plain PyTorch (``ref.residual_sample_ref``); ``ops.residual_sample`` picks
 between the two by the device of the tensors.
+
+The kernel cuts each row's vocabulary into ``C`` chunks
+(``fused_verify_sample.row_split_plan``, from the shapes and the SM count
+alone), one block a (row, chunk); the last block of a row to finish (a
+ticket per row in ``scratch_for``'s buffers) adds the chunks' masses in
+chunk order and scans the crossing chunk, in the same ordinary launch.
+``C = 1`` (one block a row, no scratch) once the rows outnumber the SMs.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import ctypes
 import torch
 
 from . import build
+from .fused_verify_sample import row_split_plan
+from .paged_attention import scratch_for, sm_count
 from .ref import residual_sample_ref as residual_sample_plain
 
 __all__ = ["residual_sample_cuda", "residual_sample_plain", "launches"]
@@ -34,7 +43,7 @@ def _entry():
     if _fn is None:
         fn = build.library("residual_sample").residual_sample_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         _fn = fn
     return _fn
 
@@ -63,10 +72,17 @@ def residual_sample_cuda(p: torch.Tensor, q: torch.Tensor,
     if N == 0:
         return out
     _check(V >= 1, "empty vocabulary")
-    with torch.cuda.device(p.device):
+    dev = p.device
+    with torch.cuda.device(dev):
+        C, chunk = row_split_plan(N, V, sm_count(dev))
+        scratch = tickets = None
+        if C > 1:
+            scratch, tickets = scratch_for(dev, 3 * N * C, N)
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(p.data_ptr(), q.data_ptr(), u.data_ptr(), out.data_ptr(),
-                       N, V, stream)
+                       N, V, C, chunk,
+                       None if scratch is None else scratch.data_ptr(),
+                       None if tickets is None else tickets.data_ptr(), stream)
     build.check(err, "residual_sample")
     launches += 1
     return out

@@ -19,7 +19,10 @@ count), gives the exact tokens on a row of Z = 0 and one where nothing
 crosses, and a second call gives the same bits.  Tree attention is held
 like paged attention; ``gather_softmax_prob`` within 2e-5 relative
 (``cases.GATHER_TOL``); ``residual_sample`` tokens may differ only at a CDF
-step (``cases.cdf_step_ok``).  Contiguous tree attention is held like
+step (``cases.cdf_step_ok``); both split the vocabulary across blocks
+(``row_split_plan``; one chunk once the rows outnumber the SMs), at
+unaligned V and row offsets, a second call gives the same bits, and they
+leave their tickets at 0.  Contiguous tree attention is held like
 paged tree attention, and a chain mask must equal paged tree attention over
 the same keys laid out in pages, bit for bit (paged tree attention's own
 chain mask matches paged attention within ``cases.PAGED_TOL``: at bf16 the
@@ -360,29 +363,100 @@ def test_paged_tree_attention_splits_its_keys(cuda, case, ps):
         assert not (args[3][-1] >= 0).any() and not got[-1].any()
 
 
-@pytest.mark.parametrize("N,V", [(5, 300), (96, 32000), (384, 32000),
-                                 (96, 151936), (3, 1)])
+def _offset(x, by):
+    """``x`` copied into a flat buffer ``by`` floats past its start: the same
+    values, contiguous, 4 * ``by`` bytes off 16-byte alignment."""
+    flat = torch.empty(x.numel() + by, dtype=x.dtype, device=x.device)
+    out = flat[by:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (N, V): the tree path's nodes (2 chunks a row), the ceiling (one chunk),
+# the Qwen3.5 vocabulary, one row (many chunks), rows past the SM count
+# (one chunk), unaligned rows split (V = 4097) and unsplit (V = 300, V = 1)
+SOFTMAX_SHAPES = [(96, 32000), (384, 32000), (96, 151936), (1, 32000),
+                  (None, 4000), (5, 4097), (5, 300), (3, 1)]
+
+
+@pytest.mark.parametrize("N,V", SOFTMAX_SHAPES)
 def test_gather_softmax_prob_kernel_matches_plain(cuda, N, V):
+    """B4 cuts V into ``row_split_plan``'s chunks (C = 1 once the rows
+    outnumber the SMs), within ``cases.GATHER_TOL`` of the plain version;
+    one launch a call, a second call gives the same bits, and logits 4
+    bytes off 16-byte alignment (a scalar head) stay within the same
+    tolerance."""
+    n_sm = pa.sm_count(cuda)
+    N = n_sm + 4 if N is None else N
+    C, chunk = fvs.row_split_plan(N, V, n_sm)
+    assert (C > 1) == (N <= n_sm and V >= 2 * fvs.ROW_MIN_CHUNK)
     logits, ids = cases.softmax_case(N, V, cuda)
+    before = gsp.launches
     got = gsp.gather_softmax_prob_cuda(logits, ids)
-    want = gsp.gather_softmax_prob_plain(logits, ids)
+    assert gsp.launches == before + 1
     rtol, atol = cases.GATHER_TOL
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    torch.testing.assert_close(got, gsp.gather_softmax_prob_plain(logits, ids),
+                               rtol=rtol, atol=atol)
+    assert torch.equal(got, gsp.gather_softmax_prob_cuda(logits, ids))
+    moved = gsp.gather_softmax_prob_cuda(_offset(logits, 1), ids)
+    torch.testing.assert_close(moved, got, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("N,V", [(8, 300), (8, 32000), (8, 151936), (5, 4097)])
+RESIDUAL_SHAPES = [(8, 300), (8, 32000), (8, 151936), (1, 32000),
+                   (None, 4000), (5, 4097), (5, 300), (3, 1)]
+
+
+@pytest.mark.parametrize("N,V", RESIDUAL_SHAPES)
 def test_residual_sample_kernel_matches_plain(cuda, N, V):
-    """Reject rows, two zero-residual rows (the first of tied maxima wins)
-    and a row where nothing crosses (V - 1)."""
+    """B5 cuts V into ``row_split_plan``'s chunks: tokens equal the plain
+    version or differ at a CDF step; the Z = 0 row gives argmax(p), the
+    tie of p's maxima half a row apart (two chunks when split) its first
+    index, the row where nothing crosses V - 1; one launch a call, a second
+    call gives the same bits; p and q 4 bytes off 16-byte alignment (a
+    scalar head), or off by different amounts (all scalar loads), give the
+    same tokens or differ at a CDF step."""
+    n_sm = pa.sm_count(cuda)
+    N = n_sm + 4 if N is None else N
+    C, chunk = fvs.row_split_plan(N, V, n_sm)
+    assert (C > 1) == (N <= n_sm and V >= 2 * fvs.ROW_MIN_CHUNK)
     p, q, u = cases.residual_case(N, V, cuda)
+    before = rs.launches
     got = rs.residual_sample_cuda(p, q, u)
-    want = rs.residual_sample_plain(p, q, u)
-    rep = cases.compare_residual(got, want, p, q, u)
+    assert rs.launches == before + 1
+    rep = cases.compare_residual(got, rs.residual_sample_plain(p, q, u), p, q, u)
     assert rep["diff_rows_at_cdf_step"], rep
     tok = got.cpu()
-    assert int(tok[0]) == int(p[0].argmax()) and int(tok[2]) == V - 1
-    tied = (p[1] == p[1].max()).nonzero().flatten().cpu()
-    assert len(tied) == 2 and int(tok[1]) == int(tied[0])
+    assert int(tok[0]) == int(p[0].argmax())
+    if N > 2:
+        assert int(tok[2]) == V - 1
+    if N > 1 and V > 1:
+        tied = (p[1] == p[1].max()).nonzero().flatten().cpu()
+        assert len(tied) == 2 and int(tok[1]) == int(tied[0])
+        assert C == 1 or int(tied[0]) // chunk != int(tied[1]) // chunk
+    assert torch.equal(got, rs.residual_sample_cuda(p, q, u))
+    for dp, dq in ((1, 1), (1, 2)):
+        moved = rs.residual_sample_cuda(_offset(p, dp), _offset(q, dq), u)
+        rep = cases.compare_residual(moved, got, p, q, u)
+        assert rep["diff_rows_at_cdf_step"], rep
+
+
+def test_samplers_leave_their_tickets_at_zero(cuda):
+    """A split B1 launch between two calls of each split sampler uses the
+    same tickets; each call gives the same bits and every ticket is 0
+    afterwards."""
+    logits, ids = cases.softmax_case(96, 32000, cuda)
+    p, q, u = cases.residual_case(8, 32000, cuda)
+    b1 = paged_case(8, 1, 32, 4, 64, 16, 512, torch.bfloat16, cuda, width=64)
+    assert pa.split_plan(8, 4, 8, 64, 16, pa.sm_count(cuda))[2] > 1
+    first = (gsp.gather_softmax_prob_cuda(logits, ids),
+             rs.residual_sample_cuda(p, q, u))
+    pa.paged_attention_cuda(*b1)
+    second = (gsp.gather_softmax_prob_cuda(logits, ids),
+              rs.residual_sample_cuda(p, q, u))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _, tickets = pa.scratch_for(p.device, 0, 0)
+    assert not tickets.any()
 
 
 @pytest.mark.parametrize("commit", ["scatter", "repair"])

@@ -737,6 +737,181 @@ def test_gather_softmax_prob_and_residual_sample_match_jax_ref(seed):
     assert got[0] == p[0].argmax()
 
 
+# (N, V, SMs, C): B4's tree nodes (2 chunks a row at N = 96), B5's rows (33
+# chunks of 972 at N = 8), the rows outnumbering the SMs (C = 1), one row
+# (chunks of ROW_MIN_CHUNK), the card tests' unaligned V = 4097 (16 chunks
+# of 260), V shorter than a chunk, V = 1 (chunk rounded up to 4)
+ROW_SPLIT_SHAPES = [
+    (96, 32000, 132, 2), (384, 32000, 132, 1), (96, 151936, 132, 2),
+    (8, 32000, 132, 33), (8, 151936, 132, 33), (132, 32000, 132, 2),
+    (133, 32000, 132, 1), (1, 32000, 132, 125), (5, 4097, 132, 16),
+    (5, 300, 132, 1), (3, 1, 132, 1), (8, 4000, 132, 15), (4, 2500, 2, 1),
+]
+
+
+@pytest.mark.parametrize("N,V,n_sm,C", ROW_SPLIT_SHAPES)
+def test_row_split_plan_covers_every_entry_once(N, V, n_sm, C):
+    """The samplers' chunks (B4, B5) come from shapes alone, cover [0, V)
+    exactly once in order, none empty, each a multiple of 4 entries (a
+    16-byte-aligned row stays aligned at every edge); N * C stays within
+    ``ROW_BLOCKS_PER_SM`` blocks a SM, so C = 1 once the rows outnumber the
+    SMs."""
+    got_c, chunk = tfvs.row_split_plan(N, V, n_sm)
+    assert got_c == C
+    ranges = tfvs.vocab_split_ranges(V, got_c, chunk)
+    assert [v for a, e in ranges for v in range(a, e)] == list(range(V))
+    assert all(e > a for a, e in ranges)
+    assert chunk % 4 == 0
+    assert got_c == 1 or N * got_c <= tfvs.ROW_BLOCKS_PER_SM * n_sm
+    assert (got_c == 1) >= (N > n_sm)
+    assert got_c == 1 or chunk >= tfvs.ROW_MIN_CHUNK
+
+
+def _softmax_split_emulated(logits, ids, C, chunk):
+    """B4's split in plain torch (float32): per chunk the softmax partial
+    (m, s), merged max first, then each chunk's sum rescaled to it once and
+    added in chunk order; the picked logit of the clamped id."""
+    N, V = logits.shape
+    ranges = tfvs.vocab_split_ranges(V, C, chunk)
+    m = torch.stack([logits[:, a:e].amax(-1) for a, e in ranges], -1)
+    s = torch.stack([torch.exp(logits[:, a:e] - m[:, k, None]).sum(-1)
+                     for k, (a, e) in enumerate(ranges)], -1)
+    M = m.amax(-1)
+    S = torch.zeros_like(M)
+    for k in range(C):
+        S = S + s[:, k] * torch.exp(m[:, k] - M)
+    pick = logits.gather(-1, ids.long().clamp(0, V - 1)[:, None])[:, 0]
+    return torch.exp(pick - M) / S
+
+
+@pytest.mark.parametrize("N,V,n_sm", [
+    (96, 4000, 132),     # the tree path's N: 2 chunks of 2000
+    (5, 4097, 132),      # 16 chunks of 260, rows not 16-byte aligned
+    (1, 3000, 132),      # one row: 11 chunks
+    (8, 2500, 2),        # rows past the SMs: C = 1
+    (3, 1, 132),         # V = 1
+])
+@pytest.mark.parametrize("seed", [40, 41])
+def test_gather_softmax_split_arithmetic_matches_jax_ref(N, V, n_sm, seed):
+    """B4's split arithmetic, emulated in plain torch, against the JAX
+    oracle within ``cases.GATHER_TOL``; rows pick their argmax, their argmin
+    and random entries."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((N, V)) * 3).astype(np.float32)
+    ids = rng.integers(0, V, N).astype(np.int32)
+    ids[0] = logits[0].argmax()
+    ids[-1] = logits[-1].argmin()
+    C, chunk = tfvs.row_split_plan(N, V, n_sm)
+    assert (C > 1) == (N <= n_sm and V >= 2 * tfvs.ROW_MIN_CHUNK)
+    got = _softmax_split_emulated(torch.from_numpy(logits),
+                                  torch.from_numpy(ids), C, chunk)
+    want = np.asarray(jref.gather_softmax_prob_ref(jnp.asarray(logits),
+                                                   jnp.asarray(ids)))
+    rtol, atol = cases.GATHER_TOL
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+
+
+def _residual_split_emulated(p, q, u, C, chunk):
+    """B5's split in plain torch (float32): per chunk the residual mass and
+    argmax(p) (first index); the masses added in chunk order (Z); Z <= 0
+    gives the merged argmax, ties to the smaller index; else the chunk whose
+    prefix first exceeds u * Z scans its entries from the masses before it
+    (its last positive entry should its own sums fall short); no crossing
+    gives V - 1."""
+    N, V = p.shape
+    ranges = tfvs.vocab_split_ranges(V, C, chunk)
+    out = torch.empty(N, dtype=torch.int32)
+    for n in range(N):
+        r = torch.clamp(p[n] - q[n], min=0.0)
+        mass = [r[a:e].sum() for a, e in ranges]
+        zr = torch.zeros(())
+        for w in mass:
+            zr = zr + w
+        if zr <= 0:
+            best = [(p[n, a:e].max(), a + int(p[n, a:e].argmax()))
+                    for a, e in ranges]
+            token = best[0]
+            for cand in best[1:]:
+                if cand[0] > token[0]:
+                    token = cand
+            out[n] = token[1]
+            continue
+        target = u[n] * zr
+        run, cross = torch.zeros(()), None
+        for k, w in enumerate(mass):
+            if run + w > target:
+                cross = k
+                break
+            run = run + w
+        if cross is None:
+            out[n] = V - 1
+            continue
+        a, e = ranges[cross]
+        hit = ((run + torch.cumsum(r[a:e], 0)) > target).nonzero()
+        out[n] = a + int(hit[0] if len(hit) else (r[a:e] > 0).nonzero()[-1])
+    return out
+
+
+def _residual_inputs(seed, N, V, chunk, vhat=32):
+    """(p, q, u) from numpy: p a softmax row, q a top-``vhat`` draft row
+    scattered dense (as ``verify_tree`` builds it), u uniform.  Row 0 has
+    q == p (Z = 0: argmax(p)); row 1 q == p with p's maximum tied by an
+    entry one chunk away, or half the row with one chunk (the first index
+    wins); row 2 u = 1.5 (nothing crosses: V - 1)."""
+    rng = np.random.default_rng(seed)
+
+    def softmax(z):
+        e = np.exp(z - z.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    p = softmax(rng.standard_normal((N, V)) * 3).astype(np.float32)
+    d = softmax(rng.standard_normal((N, V)) * 3)
+    idx = np.argsort(-d, axis=-1, kind="stable")[:, :vhat]
+    val = np.take_along_axis(d, idx, -1)
+    q = np.zeros((N, V), np.float32)
+    np.put_along_axis(q, idx, (val / val.sum(-1, keepdims=True)), -1)
+    u = rng.random(N).astype(np.float32)
+    q[0] = p[0]
+    top = int(p[1].argmax())
+    twin = top + chunk if top + chunk < V else top - chunk
+    if not 0 <= twin < V:        # one chunk: half the row away
+        twin = (top + V // 2) % V
+    p[1, twin] = p[1, top]
+    q[1] = p[1]
+    u[2] = 1.5
+    return p, q, u, min(top, twin)
+
+
+@pytest.mark.parametrize("N,V,n_sm", [
+    (8, 4000, 132),      # the tree path's N: 15 chunks of 268
+    (5, 4097, 132),      # 16 chunks of 260, rows not 16-byte aligned
+    (3, 32000, 132),     # 88 chunks of 364
+    (8, 300, 132),       # V shorter than two chunks: C = 1
+    (6, 2000, 2),        # rows past the SMs: C = 1
+])
+@pytest.mark.parametrize("seed", [50, 51])
+def test_residual_sample_split_arithmetic_matches_jax_ref(N, V, n_sm, seed):
+    """B5's split arithmetic, emulated in plain torch, against the JAX
+    oracle: each token equal or at a CDF step (``cases.cdf_step_ok``); the
+    Z = 0 row gives argmax(p), the tie of p's maxima across two chunks its
+    first index, and the row where nothing crosses V - 1."""
+    C, chunk = tfvs.row_split_plan(N, V, n_sm)
+    assert (C > 1) == (N <= n_sm and V >= 2 * tfvs.ROW_MIN_CHUNK)
+    p, q, u, first = _residual_inputs(seed, N, V, chunk)
+    if C > 1:
+        tied = np.flatnonzero(p[1] == p[1].max())
+        assert len(tied) == 2 and tied[0] // chunk != tied[1] // chunk
+    tp, tq, tu = map(torch.from_numpy, (p, q, u))
+    got = _residual_split_emulated(tp, tq, tu, C, chunk)
+    want = torch.from_numpy(np.asarray(jref.residual_sample_ref(
+        jnp.asarray(p), jnp.asarray(q), jnp.asarray(u))).astype(np.int32))
+    for n in (got != want).nonzero().flatten().tolist():
+        assert cases.cdf_step_ok(tp[n], tq[n], tu[n], got[n], want[n])
+    assert int(got[0]) == int(want[0]) == int(p[0].argmax())
+    assert int(got[1]) == int(want[1]) == first
+    assert int(got[2]) == int(want[2]) == V - 1
+
+
 def test_residual_sample_saturates_at_last_token_when_nothing_crosses():
     """Both reference versions return V - 1 when u * Z is at or past the
     last CDF value (the Pallas kernel returns argmax(p) there)."""
