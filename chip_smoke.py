@@ -65,7 +65,11 @@ package.  Phases (none catches a failure):
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
      weights and draws, three sequential rounds then three tree rounds
-     (J=1 through the tree machinery, J=2, J=3) on the paged layout, the
+     (J=1 through the tree machinery, J=2, J=3) on the paged layout; the
+     paged engine under ``ContinuousEngine``: a forced-barrier session of
+     three steps and an externally paced sequence (a ``-1``-padded bucket,
+     a commit out of dispatch order, a batch merged from two draft groups,
+     a retire mid-verify), identical committed tokens and counts; the
      same six rounds on the contiguous layout, and three J=1 rounds each
      with mamba2 and zamba2 smoke targets (contiguous; each of these
      launches B7 and B8): identical committed tokens; and the plain
@@ -114,10 +118,33 @@ package.  Phases (none catches a failure):
      exactly 32 launches and nothing else launched or called plain; then
      each layer held against its plain version within ``cases.PAGED_TOL``
      and against B7 on the bf16 slab, and the bytes of both slabs
- 11. summary lines: each profiled path's device busy, wall and idle share
-     per round or step; per path, the launches of B3, B6, B1, B7, B2, B4
-     and B5 per round or step (counters) beside their profiled calls and
-     device ms; then one ``{"kernels": [...]}`` JSON line (each kernel with
+ 11. the continuous path at full width: the J=1 pair and requests (``T_S``
+     alternating 0.004 / 0.03) under ``MultiSpinCell(scheme="hete",
+     schedule="continuous", max_batch=8, max_inflight=2, L_max=8)`` over
+     ``ContinuousBackend`` on a fresh paged engine; one request leaves
+     while its batch is in flight (its pages back at once); per committed
+     batch every live member commits >= 1 token, B2 launches once per
+     verification batch dispatched and B1 grows, no plain call, both pools
+     pass their invariants, one host sync per collect, occupancy in
+     (0, 1]; 24 checked batches, then 3 profiled, then the drain under the
+     same checks, after which every page is back; ms per batch and tokens/s
+     beside phase 5's; then a forced barrier of 3 steps restarted from the
+     same prompts must commit the tokens of 3 ``spin_round``s with the same
+     draws
+ 12. the gateway path: the port launcher's ``build_cell`` (``--backend
+     engine --arch llama2-7b --max-len 1024 --max-batch 8 --L-max 8``: the
+     float32 target and the launcher's one-layer draft) behind
+     ``MultiSpinGateway`` on 127.0.0.1, ``run_loadgen`` of 16 requests at
+     32/s: no error, every request's streamed token ids equal the engine's
+     committed tokens of its stream, ``/metrics`` parses, B1 and B2
+     launch, no plain call, the pools pass their invariants; TTFT p50/p95
+     and tokens/s; then 3 rounds of the same cell stepped directly (8 more
+     requests) under torch.profiler
+ 13. summary lines: each profiled path's device busy, wall and idle share
+     per round, step or batch; per path, the launches of B3, B6, B1, B7,
+     B2, B4 and B5 per round, step or batch (counters) beside their
+     profiled calls and device ms; the gateway's TTFT and tokens/s; then
+     one ``{"kernels": [...]}`` JSON line (each kernel with
      the design it, or its bf16 route, moved to), the card line, and as the
      last line
      ``{"ok": true, "device": {...}}``
@@ -232,8 +259,10 @@ Q8_CASES = [
 Q8_HEADLINE = ("llama2-7b plain decode", "bfloat16")
 Q8_BUDGET = 0.05    # int8 against exact K/V, tests/test_kernels.py:475
 DECODE_STEPS = 64
+CONTINUOUS_CHECKED = 24     # checked batches before the profile
 PROFILES = {}   # label -> device busy, wall and idle share per round or step
 START_PROFILES = {}   # (label, op) -> device ms and calls in a profiled start()
+GATEWAY = {}   # the gateway session's loadgen numbers
 
 
 def log(*args):
@@ -955,7 +984,94 @@ def reference_check(torch, np):
         f"{[len(c) for c in committed['cuda']]}")
     if not same:
         raise AssertionError(f"card {committed['cuda']} != CPU {committed['cpu']}")
+    continuous_reference_check(torch, np, tcfg, dcfg, prompts)
     contiguous_reference_check(torch, np, dcfg, prompts)
+
+
+def _paced_script(np, cont):
+    """Phase 4's externally paced continuous sequence (rows 0-3: the start
+    batch plus a late stream): 3 live rows in a ``-1``-padded bucket of 4,
+    a commit out of dispatch order, a batch merged from two draft groups,
+    a retire while that batch is in flight, and a last round on the
+    survivors.  Returns (rows, accepted, committed) per commit."""
+    out = []
+
+    def land(batch):
+        acc = cont.commit(batch)
+        out.append((list(batch.ticket.rows), [int(a) for a in acc],
+                    [[int(t) for t in c] for c in cont.state.committed]))
+        cont.engine.t_pages.check_invariants()
+        cont.engine.d_pages.check_invariants()
+
+    first = cont.dispatch_round([0, 1, 2], [3, 2, 4])    # bucket (4, 4)
+    second = cont.dispatch_round([3], [4])
+    land(second)                                         # out of order
+    land(first)
+    f = cont.fsm
+    cont._dispatch_draft_group([f[0]], np.array([4]))
+    cont._dispatch_draft_group([f[1], f[2]], np.array([2, 4]))
+    merged = cont._dispatch_verify([f[0], f[1]])         # two draft groups
+    rest = cont._dispatch_verify([f[2]])
+    cont.retire(1)                                       # mid-verify
+    land(rest)
+    land(merged)
+    land(cont.dispatch_round([0, 2, 3], [4, 4, 4]))
+    assert out[3][0] == [0, 1] and out[3][1][1] == 0, out[3]
+    return out
+
+
+def continuous_reference_check(torch, np, tcfg, dcfg, prompts):
+    """Phase 4, continuous batching: the smoke-size paged engine under
+    ``ContinuousEngine`` on the card against the same on the CPU, the same
+    weights and the same draws (``KeyedDraws`` on the CPU, moved over): a
+    forced-barrier session of three steps, then the externally paced
+    sequence.  Committed tokens and accepted counts must be identical."""
+    from repro_torch.core.draws import KeyedDraws
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SpecEngine
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    late = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 257, (1, 7)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = SpecEngine(tcfg, dcfg, max_len=96, cache_kind="paged",
+                         num_pages=36, device=dev)
+        eng.init_params(0)
+        if dev == "cuda":
+            eng.t_params, eng.d_params = (_to(torch, p, "cuda")
+                                          for p in ref_params)
+        else:
+            ref_params = (eng.t_params, eng.d_params)
+        ops.reset_counts()
+        cont = ContinuousEngine(eng, eng.start(prompts.to(dev)), 42,
+                                max_inflight=1, exact_shapes=True,
+                                draws=KeyedDraws("cpu"))
+        for b in range(3):
+            cont.add_stream(b, length=4)
+        barrier = []
+        for _ in range(3):
+            evs = cont.step()
+            assert len(evs) == 1, evs
+            barrier.append(([int(a) for a in evs[0].accepted],
+                            [[int(t) for t in c] for c in cont.state.committed]))
+        st, rows = eng.add_streams(eng.start(prompts.to(dev)), late.to(dev))
+        assert rows == [3]
+        paced = _paced_script(np, ContinuousEngine(eng, st, 5,
+                                                   draws=KeyedDraws("cpu")))
+        out[dev] = (barrier, paced, {k: v for k, v in ops.counts().items()
+                                     if v["kernel"] or v["plain"]})
+    same = out["cpu"][:2] == out["cuda"][:2]
+    log(f"reference check (continuous, smoke engine: forced barrier 3 steps, "
+        f"paced sequence of 5 commits with a -1-padded bucket, a merged batch, "
+        f"an out-of-order commit and a retire mid-verify): card == CPU "
+        f"committed tokens and counts: {same}; accepted per commit "
+        f"{[acc for _, acc, _ in out['cuda'][1]]}; card counts {out['cuda'][2]}")
+    if not same:
+        raise AssertionError(f"card {out['cuda'][:2]} != CPU {out['cpu'][:2]}")
+    for op in ("paged_attention", "fused_verify_sample"):
+        c = out["cuda"][2][op]
+        assert c["kernel"] > 0 and c["plain"] == 0, out["cuda"][2]
 
 
 CONTIGUOUS_CHECK_ROUNDS = {
@@ -1197,6 +1313,299 @@ def main_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, label, scheme,
         f"mean round {1e3 * total_s / len(rounds):.2f} ms; "
         f"peak memory {peak / 2**30:.2f} GiB; launches {counts}; "
         f"summary {cell.summary()}")
+    return counts, rounds, at_start
+
+
+def continuous_path(torch, np, ops, tcfg, dcfg, cache_dtype, j1, *, K=8,
+                    M=128, NEW=64, max_len=1024, checked=CONTINUOUS_CHECKED):
+    """Phase 11: continuous batching at full width.  ``ContinuousBackend``
+    over a paged engine under ``MultiSpinCell(schedule="continuous",
+    max_inflight=2)``, K requests of M-token prompts asking NEW tokens,
+    ``T_S`` alternating 0.004 / 0.03 so that ready sets churn; one request
+    leaves while its batch is in flight.  Per committed batch: every live
+    member commits >= 1 token, each verification batch dispatched launches
+    B2 exactly once and B1, every plain counter stays 0, both pools pass
+    their invariants, one host sync per collect, occupancy in (0, 1].
+    Counters are set to 0 just before ``start()`` and read after
+    ``checked`` batches; 3 batches are profiled; the session then drains
+    under the same checks and every page must be back.  Last, a forced
+    barrier (``max_inflight=1, exact_shapes=True``) of 3 steps restarted
+    from the same prompts must commit the tokens of 3 ``spin_round``s fed
+    the same draws.  Returns (launch counts, per-batch records, launch
+    counts of start)."""
+    from repro_torch.api import (
+        CellConfig,
+        ChannelConfig,
+        ContinuousBackend,
+        MultiSpinCell,
+        Request,
+        SpecEngine,
+    )
+    from repro_torch.core.draws import KeyedDraws, RoundDraws
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    label = "continuous path"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = SpecEngine(tcfg, dcfg, max_len=max_len, cache_dtype=cache_dtype,
+                        cache_kind="paged", page_size=16, device="cuda")
+    engine.init_params(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, tcfg.vocab_size, (K, M), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t1 = time.perf_counter()
+    state = engine.start(prompts)
+    torch.cuda.synchronize()
+    at_start = ops.counts()
+    assert all(c["plain"] == 0 for c in at_start.values()), at_start
+    log(f"{label}: weights in {t1 - t0:.2f} s, paged prefill of {K}x{M} in "
+        f"{time.perf_counter() - t1:.2f} s; pool {engine.num_pages} pages")
+    backend = ContinuousBackend(engine, state, max_inflight=2, max_batch=K)
+    cont = backend.cont
+    rng = np.random.default_rng(0)
+    cfg = CellConfig(scheme="hete", schedule="continuous", max_batch=K,
+                     max_inflight=2, channel=ChannelConfig(
+                         vocab_size=tcfg.vocab_size),
+                     t_ver_fix=0.035, t_ver_lin=0.0177, L_max=8)
+    cell = MultiSpinCell(cfg, backend=backend, rng=rng)
+    host_prompts = prompts.cpu().numpy()
+    for i in range(K):
+        cell.submit(Request(rid=i, prompt_len=M, max_new_tokens=NEW,
+                            alpha=float(rng.choice([0.71, 0.74, 0.86])),
+                            T_S=0.004 if i % 2 else 0.03,
+                            prompt=tuple(int(t) for t in host_prompts[i])))
+
+    def batches():
+        return len(cont.commits) + len(cont._inflight)
+
+    left = None
+    records, total_tokens, total_s = [], 0, 0.0
+
+    def checked_step(i):
+        nonlocal left, total_tokens, total_s
+        before, n_before = ops.counts(), batches()
+        lens0 = [len(c) if c is not None else 0 for c in backend.state.committed]
+        t = time.perf_counter()
+        rec = cell.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if rec is None:
+            return None
+        after, dispatched = ops.counts(), batches() - n_before
+        acc, active = np.asarray(rec.accepted), np.asarray(rec.active, bool)
+        assert (acc[active] >= 1).all(), f"batch {i}: a member committed nothing"
+        assert after["fused_verify_sample"]["kernel"] \
+            - before["fused_verify_sample"]["kernel"] == dispatched, (i, after)
+        if dispatched:
+            assert after["paged_attention"]["kernel"] \
+                > before["paged_attention"]["kernel"], (i, after)
+        for op in ops.OPS:
+            assert after[op]["plain"] == 0, (i, op, after)
+        engine.t_pages.check_invariants()
+        engine.d_pages.check_invariants()
+        assert rec.n_host_syncs == 1, (i, rec.n_host_syncs)
+        assert 0 < rec.batch_occupancy <= 1, rec.batch_occupancy
+        grew = [len(c) - l0 if c is not None else 0
+                for c, l0 in zip(backend.state.committed, lens0)]
+        assert sum(grew) == int(acc.sum()), (grew, acc)
+        if left is None and i >= 2 and cell._cont_inflight:
+            # a request leaves while its batch is on the card: its pages
+            # come back at once, the batch skips it at commit
+            rid = cell._cont_inflight[0]["rids"][0]
+            row = backend._row_of[rid]
+            cell.leave(rid)
+            assert (engine.t_pages.page_table([row]) == -1).all()
+            assert (engine.d_pages.page_table([row]) == -1).all()
+            left = (i, rid)
+        total_tokens += int(acc.sum())
+        total_s += dt
+        return {"batch": i, "ms": 1e3 * dt, "rids": rec.rids.tolist(),
+                "lengths": rec.lengths.tolist(), "accepted": acc.tolist(),
+                "committed": int(acc.sum()), "dispatched": dispatched,
+                "occupancy": float(rec.batch_occupancy),
+                "ready_depth": int(rec.ready_depth)}
+
+    torch.cuda.synchronize()
+    for i in range(checked):
+        r = checked_step(i)
+        assert r is not None, f"{label}: drained after {i} batches"
+        records.append(r)
+        log(f"{label} batch {i:2d}: {r['ms']:9.2f} ms  rids {r['rids']}  "
+            f"L={r['lengths']}  accepted={r['accepted']}  dispatched "
+            f"{r['dispatched']}  occupancy {r['occupancy']:.3f}  ready "
+            f"{r['ready_depth']}")
+    assert left is not None, "no request left while its batch was in flight"
+    counts = ops.counts()
+    for op in ("paged_attention", "fused_verify_sample"):
+        assert counts[op]["kernel"] > at_start[op]["kernel"], counts
+    profile_rounds(torch, cell.step, PROFILE_ROUNDS, label, unit="batch")
+    mean_ms = total_s * 1e3 / len(records)
+    j1_ms = sum(r["ms"] for r in j1[1]) / len(j1[1])
+    j1_tok = sum(r["committed"] for r in j1[1]) / (j1_ms / 1e3 * len(j1[1]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: {len(records)} checked batches, {total_tokens} tokens in "
+        f"{total_s:.3f} s = {total_tokens / total_s:.2f} tokens/s, mean batch "
+        f"{mean_ms:.2f} ms (J=1 lockstep path: mean round {j1_ms:.2f} ms, "
+        f"{j1_tok:.2f} tokens/s); request {left[1]} left at batch {left[0]}; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    n = len(records)
+    while True:
+        n_before = len(cell.history)
+        r = checked_step(n)
+        if r is None:
+            break
+        n += 1
+        assert len(cell.history) == n_before + 1
+    assert not cell.scheduler.active and not cell.scheduler.queue
+    engine.t_pages.check_invariants()
+    engine.d_pages.check_invariants()
+    assert engine.t_pages.num_free_pages == engine.d_pages.num_free_pages \
+        == engine.num_pages, engine.pool_stats()
+    log(f"{label}: drained after {n} batches (summary {cell.summary()}); "
+        f"every page back: {engine.pool_stats()}")
+
+    # the forced barrier against lockstep, same prompts and draws
+    draws, L = KeyedDraws("cuda"), 4
+    cont = ContinuousEngine(engine, engine.start(prompts), 42, max_inflight=1,
+                            exact_shapes=True, draws=draws)
+    for b in range(K):
+        cont.add_stream(b, length=L)
+    for _ in range(3):
+        cont.step()
+    barrier = [[int(t) for t in c] for c in cont.state.committed]
+    st = engine.start(prompts)
+    for r in range(3):
+        k = (42, ("fold", r))
+        st, _, _ = engine.spin_round(st, np.full(K, L), RoundDraws(
+            draws.draft(k + (("split", 0),), L, K, 64),
+            *draws.verify(k + (("split", 1),), K, L, tcfg.vocab_size)))
+    lockstep = [[int(t) for t in c] for c in st.committed]
+    same = barrier == lockstep
+    log(f"{label}: forced barrier (3 steps, max_inflight=1, exact shapes) == "
+        f"3 spin_rounds with the same draws: {same}; committed lengths "
+        f"{[len(c) for c in barrier]}")
+    if not same:
+        raise AssertionError(f"barrier {barrier} != lockstep {lockstep}")
+    return counts, records, at_start
+
+
+def gateway_path(torch, ops, *, n_requests=16):
+    """Phase 12: the port launcher's cell (``build_cell`` with ``--backend
+    engine --arch llama2-7b --max-len 1024 --max-batch 8 --L-max 8``, on the
+    card) behind ``MultiSpinGateway`` on 127.0.0.1, ``run_loadgen`` of
+    ``n_requests`` at 32/s, prompts of 8 tokens (the launcher's start
+    prompts: a start row streams from the request's ``prompt_len`` on,
+    ROADMAP §C).  No request may fail; each one's streamed token
+    ids must equal the engine's committed tokens of its stream up to its
+    cap; ``/metrics`` must parse; B1 and B2 launch and no plain version
+    runs; the pools pass their invariants.  Counters are set to 0 just
+    before ``build_cell`` (which runs ``start()``) and read after the
+    burst.  Returns (launch counts, [the session's record], launch counts
+    of start)."""
+    import asyncio
+    import re
+
+    from repro_torch.api import Request
+    from repro_torch.launch import gateway as launcher
+    from repro_torch.serving.gateway import (
+        GatewayClient,
+        GatewayConfig,
+        LoadGenConfig,
+        MultiSpinGateway,
+        run_loadgen,
+    )
+    from repro_torch.serving.gateway import client as gclient
+
+    label = "gateway path"
+    args = launcher.parser().parse_args(
+        ["--backend", "engine", "--arch", "llama2-7b", "--max-len", "1024",
+         "--max-batch", "8", "--L-max", "8"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    cell = launcher.build_cell(args)
+    torch.cuda.synchronize()
+    at_start = ops.counts()
+    backend, engine = cell.backend, cell.backend.engine
+    log(f"{label}: build_cell(--backend engine --arch llama2-7b --max-len "
+        f"1024 --max-batch 8 --L-max 8) in "
+        f"{time.perf_counter() - t0:.2f} s: target {engine.target_cfg.name} "
+        f"{engine.target_cfg.param_dtype}, draft {engine.draft_cfg.name}, "
+        f"device {engine.device}, pool {engine.num_pages} pages")
+    final, streamed = {}, {}
+    drop = backend.drop_finished
+
+    def keep_then_drop(rid):
+        final[rid] = backend.stream_tokens(rid)
+        drop(rid)
+
+    backend.drop_finished = keep_then_drop
+    generate = gclient.GatewayClient.generate
+
+    async def recording_generate(self, **kw):
+        res = await generate(self, **kw)
+        streamed[res.rid] = list(res.tokens)
+        return res
+
+    async def session():
+        gw = MultiSpinGateway(cell, GatewayConfig(port=0, idle_wait_s=0.02))
+        await gw.start()
+        try:
+            gclient.GatewayClient.generate = recording_generate
+            report = await run_loadgen(
+                "127.0.0.1", gw.port,
+                LoadGenConfig(rate_per_s=32.0, n_requests=n_requests,
+                              prompt_len_choices=(8,),
+                              max_new_tokens_choices=(4, 8), seed=0))
+        finally:
+            gclient.GatewayClient.generate = generate
+            text = await GatewayClient(port=gw.port).metrics()
+            await gw.stop()
+        return report, text
+
+    t = time.perf_counter()
+    report, text = asyncio.run(session())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.counts()
+    assert report["n_error"] == 0, report["errors"]
+    assert report["n_ok"] == n_requests, report
+    for rec in report["records"]:
+        toks = streamed[rec["rid"]]
+        assert len(toks) == rec["tokens"] > 0, rec
+        assert toks == final[rec["rid"]][:len(toks)], (rec, toks)
+    line_re = re.compile(r"^(#.*|[a-z_]+(\{[^}]*\})? [0-9.eE+-]+)$")
+    bad = [ln for ln in text.strip().splitlines() if not line_re.match(ln)]
+    assert not bad and "multispin_rounds_total" in text, bad
+    for op in ("paged_attention", "fused_verify_sample"):
+        assert counts[op]["kernel"] > at_start[op]["kernel"], counts
+    assert all(c["plain"] == 0 for c in counts.values()), counts
+    engine.t_pages.check_invariants()
+    engine.d_pages.check_invariants()
+    rounds = [{"round": i, "committed": int(r.accepted.sum())}
+              for i, r in enumerate(cell.history)]
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"requests": n_requests, "rounds": len(rounds), "wall_s": wall,
+           "tokens": report["tokens"], "tokens_per_s": report["tokens_per_s"],
+           "ttft_p50_s": report["ttft_s"]["p50"],
+           "ttft_p95_s": report["ttft_s"]["p95"],
+           "latency_p95_s": report["latency_s"]["p95"]}
+    log(f"{label}: {n_requests} requests at 32/s, {report['n_ok']} ok, "
+        f"{report['n_error']} errors, {len(rounds)} rounds, {report['tokens']} "
+        f"tokens in {wall:.2f} s; TTFT p50 {rec['ttft_p50_s']:.4f} s, p95 "
+        f"{rec['ttft_p95_s']:.4f} s; {report['tokens_per_s']:.2f} tokens/s; "
+        f"latency p95 {rec['latency_p95_s']:.4f} s; /metrics "
+        f"{len(text.splitlines())} lines parsed; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {counts}")
+    GATEWAY.update(rec)
+    # the launcher's cell, stepped here as the gateway's worker thread steps
+    # it, for the profile: 8 more requests, 3 rounds
+    for i in range(8):
+        cell.submit(Request(rid=10_000 + i, prompt_len=8, max_new_tokens=64,
+                            alpha=0.8, T_S=0.009))
+    profile_rounds(torch, cell.step, PROFILE_ROUNDS, label)
     return counts, rounds, at_start
 
 
@@ -1482,7 +1891,8 @@ def main() -> int:
 
     # 5. the J=1 path, 6. the tree path, 7. the contiguous tree path,
     # 8. the hybrid path and 9. the plain decode path, each on its own
-    # engine, the last one freed first; 10. the int8 path on 9's engine
+    # engine, the last one freed first; 10. the int8 path on 9's engine;
+    # 11. the continuous path and 12. the gateway path, each on its own
     from repro_torch.configs import get_config
 
     def free(label):
@@ -1531,6 +1941,10 @@ def main() -> int:
     runs["int8 decode"] = int8_path(torch, ops, cases, da, daq, eng, state)
     del eng, state
     free("plain decode")
+    runs["continuous"] = continuous_path(torch, np, ops, *pair, runs["j1"])
+    free("continuous")
+    runs["gateway"] = gateway_path(torch, ops)
+    free("gateway")
 
     for label, prof in PROFILES.items():
         log(f"summary {label}: device busy {prof['device_busy_ms']:.2f} "
@@ -1538,7 +1952,8 @@ def main() -> int:
             f"(profiler on), idle share {prof['idle_share']:.3f}")
     labels = {"j1": "J=1 path", "tree": "tree path",
               "contiguous tree": "contiguous tree path",
-              "hybrid": "hybrid path", "plain decode": "plain decode path"}
+              "hybrid": "hybrid path", "plain decode": "plain decode path",
+              "continuous": "continuous path", "gateway": "gateway path"}
     for path, (counts, rounds, start) in runs.items():
         prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
         parts = []
@@ -1554,8 +1969,12 @@ def main() -> int:
                              f"round")
         if parts:
             log(f"summary {path}: " + "; ".join(parts))
+    log(f"summary gateway: {GATEWAY['requests']} requests at 32/s, "
+        f"{GATEWAY['rounds']} rounds in {GATEWAY['wall_s']:.2f} s, TTFT p50 "
+        f"{GATEWAY['ttft_p50_s']:.4f} s, p95 {GATEWAY['ttft_p95_s']:.4f} s, "
+        f"{GATEWAY['tokens_per_s']:.2f} tokens/s")
 
-    # 11. result lines
+    # 13. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))

@@ -8,11 +8,12 @@
     backend = EngineBackend(engine, engine.start(prompts))
     cell = MultiSpinCell(CellConfig(scheme="hete"), backend=backend)
 
-``SpecEngine(..., cache_kind="paged")`` serves churn from a page pool.  The
-gateway, continuous batching and the compiled round path come in later
-slices (ROADMAP A8-A10).  Like ``repro.api``, importing this module loads
-no torch: the engines, the page allocator and ``RoundDraws`` resolve on
-first use.
+``SpecEngine(..., cache_kind="paged")`` serves churn from a page pool;
+``ContinuousBackend`` drives it with continuous batching; the SSE gateway
+(``MultiSpinGateway``) serves a cell live.  The compiled round path comes
+in a later slice (ROADMAP A9).  Like ``repro.api``, importing this module
+loads no torch: the engines, the continuous engine, the page allocator and
+``RoundDraws`` resolve on first use.
 """
 
 from repro_torch.configs import get_config  # noqa: F401
@@ -35,6 +36,7 @@ from repro_torch.core.schemes import (  # noqa: F401
     scheme_table_markdown,
 )
 from repro_torch.serving.backends import (  # noqa: F401
+    ContinuousBackend,
     EngineBackend,
     SyntheticBackend,
     VerificationBackend,
@@ -44,6 +46,13 @@ from repro_torch.serving.cell import (  # noqa: F401
     CellConfig,
     MultiSpinCell,
     RoundRecord,
+)
+from repro_torch.serving.gateway import (  # noqa: F401
+    GatewayClient,
+    GatewayConfig,
+    MetricsHub,
+    MultiSpinGateway,
+    RoundMetrics,
 )
 from repro_torch.serving.scheduler import (  # noqa: F401
     Request,
@@ -57,13 +66,20 @@ __all__ = [
     "CellObservation",
     "ChannelConfig",
     "ChannelState",
+    "ContinuousBackend",
+    "ContinuousEngine",
     "EngineBackend",
+    "GatewayClient",
+    "GatewayConfig",
+    "MetricsHub",
     "MultiSpinCell",
+    "MultiSpinGateway",
     "MultiSpinController",
     "PagedKVCache",
     "PagePoolExhausted",
     "Request",
     "RoundDraws",
+    "RoundMetrics",
     "RoundPlan",
     "RoundRecord",
     "RoundScheduler",
@@ -89,7 +105,8 @@ _LAZY_TORCH = {"SpecEngine": "repro_torch.serving.spec_engine",
                "StreamState": "repro_torch.serving.spec_engine",
                "PagedKVCache": "repro_torch.serving.kv_cache",
                "PagePoolExhausted": "repro_torch.serving.kv_cache",
-               "RoundDraws": "repro_torch.core.draws"}
+               "RoundDraws": "repro_torch.core.draws",
+               "ContinuousEngine": "repro_torch.serving.continuous"}
 
 
 def __getattr__(name):

@@ -11,15 +11,29 @@ categorical draw is ``argmax(logits + gumbel)``.
 ``sample`` draws them from a ``torch.Generator`` seeded with one integer
 (what ``EngineBackend`` does each round); a caller that must match another
 implementation's stream builds the tensors itself.
+
+``KeyedDraws`` serves an engine that derives its randomness per dispatch
+rather than per round (the continuous engine): each half of a round — the
+draft noise, or the verification draws — is addressed by a key path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import torch
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+def _uniform(gen: torch.Generator, device, *shape) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=device)
+
+
+def _gumbel(gen: torch.Generator, device, *shape) -> torch.Tensor:
+    u = torch.clamp(_uniform(gen, device, *shape), min=_TINY)
+    return -torch.log(-torch.log(u))
 
 
 class _Draws:
@@ -60,17 +74,10 @@ class TreeDraws(_Draws):
     def sample(seed: int, B: int, J: int, L: int, vhat: int, V: int,
                device="cuda") -> "TreeDraws":
         gen = torch.Generator(device=device).manual_seed(int(seed))
-
-        def uniform(*shape):
-            return torch.rand(shape, generator=gen, device=device)
-
-        def gumbel(*shape):
-            u = torch.clamp(uniform(*shape), min=_TINY)
-            return -torch.log(-torch.log(u))
-
-        return TreeDraws(draft_gumbel=gumbel(J, L, B, vhat),
-                         u_accept=uniform(B, J * L), u_resid=uniform(B),
-                         bonus_gumbel=gumbel(B, V))
+        return TreeDraws(draft_gumbel=_gumbel(gen, device, J, L, B, vhat),
+                         u_accept=_uniform(gen, device, B, J * L),
+                         u_resid=_uniform(gen, device, B),
+                         bonus_gumbel=_gumbel(gen, device, B, V))
 
     @staticmethod
     def from_round(draws: RoundDraws) -> "TreeDraws":
@@ -79,3 +86,35 @@ class TreeDraws(_Draws):
         return TreeDraws(draft_gumbel=draws.draft_gumbel[None],
                          u_accept=draws.u_accept, u_resid=draws.u_resid,
                          bonus_gumbel=draws.bonus_gumbel)
+
+
+class KeyedDraws:
+    """A round's draws in two halves, each addressed by a key path.
+
+    A path is ``(root, step, ...)``: ``root`` an integer seed, each step
+    ``("fold", i)`` (fold a counter in) or ``("split", h)`` (half ``h`` of
+    a two-way split) — the derivation a JAX engine applies to its PRNG key,
+    written down instead of computed.  ``draft(path, L, n, vhat)`` is the
+    (L, n, vhat) Gumbel noise of L draft steps; ``verify(path, n, L, V)``
+    is ``(u_accept (n, L), u_resid (n,), bonus_gumbel (n, V))``.
+
+    Here each half comes from a ``torch.Generator`` on ``device`` seeded
+    by a hash of its path.  A caller that must match another
+    implementation's stream overrides both methods (the parity tests
+    replay the JAX package's keys this way)."""
+
+    def __init__(self, device="cuda"):
+        self.device = torch.device(device)
+
+    def _generator(self, path) -> torch.Generator:
+        digest = hashlib.blake2b(repr(tuple(path)).encode(), digest_size=8)
+        seed = int.from_bytes(digest.digest(), "little") & (2 ** 63 - 1)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def draft(self, path, L: int, n: int, vhat: int) -> torch.Tensor:
+        return _gumbel(self._generator(path), self.device, L, n, vhat)
+
+    def verify(self, path, n: int, L: int, V: int):
+        gen, dev = self._generator(path), self.device
+        return (_uniform(gen, dev, n, L), _uniform(gen, dev, n),
+                _gumbel(gen, dev, n, V))

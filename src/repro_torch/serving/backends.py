@@ -7,7 +7,9 @@ draft-then-verify compute differs between
   * ``SyntheticBackend`` — acceptance outcomes drawn Bernoulli(alpha_k)
     (the paper's analytic regime; a verbatim copy of the JAX package's);
   * ``EngineBackend``    — the port's ``SpecEngine`` drafting and
-    batch-verifying on model weights, on the card or the CPU.
+    batch-verifying on model weights, on the card or the CPU;
+  * ``ContinuousBackend`` — the same engine through the continuous-batching
+    engine, dispatch and commit split (``verify_async`` / ``collect``).
 
 Backends may expose three lifecycle hooks the cell calls around admission:
 
@@ -271,14 +273,114 @@ class EngineBackend:
         self.last_round_host_syncs = \
             int(getattr(self.engine, "host_syncs", 0)) - h0
         # the commit's packed emission already landed the accepted counts on
-        # host (0 for frozen rows), so reading them costs no device fetch
-        return np.asarray(self.engine.last_accepted, dtype=np.int64)[rows]
+        # host (0 for frozen rows), so reading them costs no device fetch;
+        # after a row-subset commit the engine keeps none, and the round's
+        # output lengths are read instead
+        accepted = getattr(self.engine, "last_accepted", None)
+        if accepted is not None and len(accepted) == B:
+            return np.asarray(accepted, dtype=np.int64)[rows]
+        return res.output_len.cpu().numpy().astype(np.int64)[rows]
 
 
 class ContinuousBackend(EngineBackend):
-    """Continuous batching through the engine is not ported yet
-    (ROADMAP A8)."""
+    """``EngineBackend`` driven through the continuous-batching engine
+    (``serving.continuous.ContinuousEngine``): verification batches are
+    dispatched asynchronously and landed later, so the cell's
+    ``schedule="continuous"`` mode can overlap the next round's drafting
+    with verification still in flight.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "continuous batching is not ported yet (ROADMAP A8)")
+    The split API is
+
+      * ``verify_async(lengths, requests, ...)`` — draft + verify dispatch
+        for exactly these requests (shape-bucketed; async, no host sync);
+        returns an opaque in-flight batch handle;
+      * ``collect(handle)`` — land the batch: the ONLY host sync; commits
+        accepted tokens, truncates rejected-draft pages, returns accepted
+        counts aligned with the handle's requests (0 for streams that
+        retired mid-flight).
+
+    ``verify`` (the plain protocol method) is dispatch + immediate collect,
+    so this backend also drops into the sync/pipelined schedules unchanged.
+    Engine state lives in the continuous engine; ``self.state`` is a view
+    onto it so every inherited accessor (``stream_tokens``, ``add_streams``
+    binding, pool stats) stays correct.
+
+    Randomness: the continuous engine derives each dispatch's draws from
+    ``seed`` and its dispatch counter (``draws``, default
+    ``core.draws.KeyedDraws`` on the engine's device); the cell's numpy
+    ``rng`` is never drawn from, as in the reference.
+    """
+
+    def __init__(self, engine, state, vhat: int = 64,
+                 admit_headroom: int = 32,
+                 keep_finished_tokens: bool = False,
+                 max_inflight: int = 2, max_batch: int | None = None,
+                 exact_shapes: bool = False, seed: int = 0, draws=None):
+        from .continuous import ContinuousEngine
+
+        # cont must exist before super().__init__ assigns self.state
+        # (the property below delegates into it)
+        self.cont = ContinuousEngine(
+            engine, state, seed, vhat=vhat, max_inflight=max_inflight,
+            max_batch=max_batch, exact_shapes=exact_shapes, draws=draws)
+        super().__init__(engine, state, vhat=vhat,
+                         admit_headroom=admit_headroom,
+                         keep_finished_tokens=keep_finished_tokens)
+
+    @property
+    def state(self):
+        return self.cont.state
+
+    @state.setter
+    def state(self, value):
+        self.cont.state = value
+
+    def ready_depth(self) -> int:
+        return self.cont.ready_depth()
+
+    def verify_async(self, lengths: np.ndarray, requests: Sequence,
+                     rng: np.random.Generator = None, key=None):
+        """Dispatch one draft+verify chain for ``requests`` without any
+        host synchronization; pair with ``collect``.  ``rng`` is not drawn
+        from; ``key`` (an integer seed) replaces the dispatch counter's."""
+        lengths = np.asarray(lengths, dtype=np.int64)
+        rows = [self._row(r) for r in requests]
+        return self.cont.dispatch_round(rows, lengths, key=key)
+
+    def collect(self, handle) -> np.ndarray:
+        """Land an in-flight batch (host sync + commit + page reclaim)."""
+        h0 = int(getattr(self.engine, "host_syncs", 0))
+        out = np.asarray(self.cont.commit(handle), dtype=np.int64)
+        self.last_round_host_syncs = \
+            int(getattr(self.engine, "host_syncs", 0)) - h0
+        return out
+
+    def verify(self, lengths: np.ndarray, requests: Sequence,
+               rng: np.random.Generator, key=None,
+               mask: np.ndarray | None = None,
+               draft_width: int = 1) -> np.ndarray:
+        if int(draft_width) > 1:
+            raise NotImplementedError(
+                "continuous batching is single-draft (J=1); multidraft "
+                "token trees run on the lockstep EngineBackend")
+        lengths = np.asarray(lengths, dtype=np.int64)
+        if mask is not None:
+            keep = np.asarray(mask, dtype=bool)
+            out = np.zeros(len(requests), dtype=np.int64)
+            if keep.any():
+                sub = [r for r, m in zip(requests, keep) if m]
+                out[keep] = self.collect(
+                    self.verify_async(lengths[keep], sub, rng, key=key))
+            return out
+        return self.collect(self.verify_async(lengths, requests, rng,
+                                              key=key))
+
+    def release(self, requests: Sequence) -> None:
+        """Retire through the state machines first (legal from any phase;
+        an in-flight batch holding the stream skips it at commit), then the
+        inherited bookkeeping (tombstones, row-map cleanup)."""
+        for r in requests:
+            row = self._row_of.get(r.rid)
+            if row is not None:
+                self.cont.retire(row)
+        super().release(requests)

@@ -29,8 +29,14 @@ prefix-deduplicated tree, scored in ONE ancestor-masked target pass, the
 longest accepted root-to-leaf path committed.  Randomness is an input: each
 round consumes one ``core.draws.RoundDraws`` (J=1) or ``TreeDraws``.
 
-Not ported yet, each raising ``NotImplementedError``: compiled modes and
-``warmup`` (ROADMAP A9).
+The J=1 round is three steps, ``draft_rows`` / ``verify_rows`` /
+``commit_rows``, which also run on row subsets of a paged engine (``-1``
+padding rows included): the core of continuous batching
+(``serving/continuous.py``).
+
+The port runs eagerly: the compiled modes raise ``NotImplementedError``
+(ROADMAP A9), and ``warmup`` returns at once, as the reference's does in
+eager mode.
 """
 
 from __future__ import annotations
@@ -89,14 +95,25 @@ class StreamState:
 
 @dataclasses.dataclass
 class RoundTicket:
-    """In-flight round work for the whole batch, between dispatch and commit.
+    """In-flight round work for a row subset, between dispatch and commit.
 
     Produced by ``draft_rows``, completed by ``verify_rows``, consumed by
-    ``commit_rows``."""
+    ``commit_rows``.  Everything on it is host metadata or a tensor whose
+    producing launches were only enqueued: holding a ticket never waits on
+    the device, so a continuous-batching engine can dispatch the next
+    round's drafting while this ticket's verification is still running.
 
+    ``rows`` may contain ``-1`` padding entries (batch-shape bucketing):
+    their page-table rows are all ``-1`` — cache writes dropped, reads
+    masked — and ``commit_rows`` skips them unconditionally.
+    """
+
+    rows: list | None             # engine rows; None = the full batch
     lengths: np.ndarray           # per-row planned draft lengths
-    L: int                        # the dispatched window length (max)
+    L: int                        # the dispatched window length (max/bucket)
     freeze: np.ndarray            # per-row do-not-advance mask
+    pending: torch.Tensor         # (n,) pending tokens at dispatch
+    target_pos: torch.Tensor      # (n,) target positions at dispatch
     draft: object | None = None   # DraftResult from generate_drafts
     res: object | None = None     # VerifyResult from verify_drafts
 
@@ -107,7 +124,8 @@ class SpecEngine:
     both models' KV caches advance only over committed tokens.
 
     ``spin_round`` is one protocol round; ``draft_rows`` / ``verify_rows``
-    / ``commit_rows`` are the same J=1 round in its three pieces.  Tensors
+    / ``commit_rows`` are the same J=1 round in its three pieces, on the
+    full batch or (paged) on any row subset.  Tensors
     live on ``device`` (the card unless the caller asks for the CPU);
     attention, the SSD scan and verification dispatch through
     ``kernels.ops``.
@@ -378,21 +396,21 @@ class SpecEngine:
         self._free_rows.append(row)
         self._free_rows.sort()
 
-    def _grow_pages(self, state: StreamState, frz: np.ndarray, t_len: int,
-                    d_len: int) -> None:
-        """Extend every live row's page mappings to cover the round's window
-        (``t_len`` target and ``d_len`` draft positions past the committed
-        prefix), clamped at the stream ceiling (window writes past max_len
-        drop) and atomic: a pool-dry failure rolls every grown row back and
-        re-raises ``PagePoolExhausted``.  Positions come from the host-side
-        committed lists (target_pos == draft_pos == len(committed) - 1), so
-        growing the mapping costs no device read."""
+    def _grow_pages(self, state: StreamState, rows, frz: np.ndarray,
+                    t_len: int, d_len: int) -> None:
+        """Extend the page mappings of every live row of ``rows`` to cover
+        the round's window (``t_len`` target and ``d_len`` draft positions
+        past the committed prefix), clamped at the stream ceiling (window
+        writes past max_len drop) and atomic: a pool-dry failure rolls every
+        grown row back and re-raises ``PagePoolExhausted``.  Positions come
+        from the host-side committed lists (target_pos == draft_pos ==
+        len(committed) - 1), so growing the mapping costs no device read."""
         cap = self.pages_per_stream * self.page_size
         grown: list[tuple[int, int, int]] = []
         with _span("engine.page_alloc", {"B": len(frz), "W": t_len}):
             try:
-                for b in range(len(frz)):
-                    if frz[b]:
+                for i, b in enumerate(rows):
+                    if frz[i]:
                         continue
                     pos_b = len(state.committed[b]) - 1
                     grown.append((b, self.t_pages.length(b),
@@ -406,82 +424,127 @@ class SpecEngine:
                 raise
 
     def warmup(self, state: StreamState, buckets, vhat: int = 64):
-        raise NotImplementedError(
-            "warmup pre-compiles the compiled round steps, which are not "
-            "ported yet (ROADMAP A9)")
+        """Pre-build the round steps at the given (B, L) buckets.  The port
+        runs eagerly (the compiled modes are refused in the constructor,
+        ROADMAP A9), so there is nothing to build: returns ``(state, {})``,
+        as the reference's eager engine does."""
+        return state, {}
 
     # ------------------------------------------------------------------
-    # round steps (the full batch; row subsets come with ROADMAP A8)
+    # round steps (reusable on row subsets — the continuous engine's core)
     # ------------------------------------------------------------------
 
-    def draft_rows(self, state: StreamState, lengths,
-                   draft_gumbel: torch.Tensor, vhat: int = 64,
-                   freeze=None) -> RoundTicket:
-        """Dispatch SLM drafting for every batch row; returns a
-        ``RoundTicket``.
+    def _ticket_rows(self, ticket: RoundTicket) -> list:
+        return (list(range(len(ticket.freeze))) if ticket.rows is None
+                else ticket.rows)
 
-        ``draft_gumbel`` (L, B, vhat) is the Gumbel noise of the L draft
-        steps, L = max(lengths).  Retired rows are frozen.  On a paged
-        engine, page mappings of live rows are extended to cover the L+1
-        verification window up front, atomically: a pool-dry failure rolls
-        every grown row back and re-raises ``PagePoolExhausted``.  Nothing
-        here waits on the device."""
+    def draft_rows(self, state: StreamState, rows, lengths,
+                   draft_gumbel: torch.Tensor, vhat: int = 64, freeze=None,
+                   pad_to: int = 0) -> RoundTicket:
+        """Dispatch SLM drafting for a row subset; returns a ``RoundTicket``.
+
+        ``rows=None`` drafts the full batch (the only form a contiguous
+        engine runs).  A paged engine takes any subset, ``-1`` padding
+        entries included (all--1 page-table rows: cache writes dropped,
+        outputs discarded at commit), so a continuous engine can bucket
+        batch shapes.  ``-1`` entries and retired rows are frozen.
+        ``pad_to`` forces the dispatched window length (length-bucket
+        shaping); acceptance is still capped at the true per-row
+        ``lengths`` by the verifier.  ``draft_gumbel`` (L, n, vhat) is the
+        noise of the L draft steps, L = max(lengths.max(), pad_to).
+
+        On a paged engine the page mappings of live rows are extended to
+        cover the L+1 verification window up front, atomically: a pool-dry
+        failure rolls every grown row back and re-raises
+        ``PagePoolExhausted``.  Nothing here waits on the device."""
         if needs_state_rollback(self.draft_cfg):
             raise NotImplementedError(
                 "SSM draft models need snapshot drafting; assigned pairs use "
                 "attention SLMs (DESIGN.md §Arch-applicability)")
-        B = int(state.pending.shape[0])
+        paged = self.cache_kind == "paged"
+        full = rows is None
+        if not paged and not full:
+            raise RuntimeError("contiguous caches run full-batch rounds "
+                               "only; row subsets need cache_kind='paged'")
+        row_list = (list(range(int(state.pending.shape[0]))) if full
+                    else [int(r) for r in rows])
+        n = len(row_list)
         lengths = np.asarray(lengths, dtype=np.int64)
-        frz = (np.zeros(B, dtype=bool) if freeze is None
+        frz = (np.zeros(n, dtype=bool) if freeze is None
                else np.asarray(freeze, dtype=bool).copy())
-        if self._retired:
-            frz[list(self._retired)] = True
-        L = int(lengths.max())
+        for i, b in enumerate(row_list):
+            if b < 0 or b in self._retired:
+                frz[i] = True
+        L = max(int(lengths.max()), int(pad_to))
         d_cache = self.d_cache
-        if self.cache_kind == "paged":
-            self._grow_pages(state, frz, L + 1, L + 1)
-            d_cache = dict(d_cache, pages=self.d_pages.device_table(range(B)))
+        if paged:
+            self._grow_pages(state, row_list, frz, L + 1, L + 1)
+            d_cache = dict(d_cache, pages=self.d_pages.device_table(row_list))
+
+        if full:
+            pending, dpos, tpos = (state.pending, state.draft_pos,
+                                   state.target_pos)
+        else:
+            # the rows' pending tokens and positions, ``-1`` rows zeroed
+            idx = host_to_device(np.asarray([max(b, 0) for b in row_list],
+                                            np.int64), self.device)
+            live = host_to_device(np.asarray([b >= 0 for b in row_list]),
+                                  self.device)
+
+            def gather(x):
+                return torch.where(live, x.index_select(0, idx),
+                                   torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+
+            pending, dpos, tpos = (gather(state.pending),
+                                   gather(state.draft_pos),
+                                   gather(state.target_pos))
 
         # --- step 2: distributed drafting (SLM) ---
-        with _span("engine.draft", {"B": B, "L": L}) as sp:
+        with _span("engine.draft", {"B": n, "L": L}) as sp:
             draft_res = generate_drafts(self.draft, self.d_params, d_cache,
-                                        state.pending, state.draft_pos, L,
-                                        draft_gumbel, vhat=vhat)
+                                        pending, dpos, L, draft_gumbel,
+                                        vhat=vhat)
             self.d_cache = strip_view(draft_res.cache)
             sp.attach(draft_res.tokens)
-        return RoundTicket(lengths=lengths, L=L, freeze=frz, draft=draft_res)
+        return RoundTicket(rows=None if full else row_list, lengths=lengths,
+                           L=L, freeze=frz, pending=pending, target_pos=tpos,
+                           draft=draft_res)
 
-    def verify_rows(self, state: StreamState, ticket: RoundTicket,
-                    u_accept: torch.Tensor, u_resid: torch.Tensor,
+    def verify_rows(self, ticket: RoundTicket, u_accept: torch.Tensor,
+                    u_resid: torch.Tensor,
                     bonus_gumbel: torch.Tensor) -> RoundTicket:
         """Dispatch the batched target pass + exact accept/reject for a
-        drafted ticket, with the round's uniforms and bonus noise.  An
-        SSM/hybrid target keeps its state after every window step and each
-        row is rolled back to the step of its accepted prefix.  Nothing
-        here waits on the device: ``commit_rows`` is the one sync point."""
-        B = len(ticket.freeze)
+        drafted ticket, with the uniforms (n, L), (n,) and the bonus noise
+        (n, V) of its rows.  The pending tokens and positions come from the
+        ticket, so other tickets may commit in between.  An SSM/hybrid
+        target keeps its state after every window step and each row is
+        rolled back to the step of its accepted prefix.  Nothing here waits
+        on the device: ``commit_rows`` is the one sync point."""
+        row_list = self._ticket_rows(ticket)
+        n = len(row_list)
         draft_res = ticket.draft
         draft_len = host_to_device(np.asarray(ticket.lengths, np.int32),
                                    self.device)
         t_cache = self.t_cache
         if self.cache_kind == "paged":
-            t_cache = dict(t_cache, pages=self.t_pages.device_table(range(B)))
+            t_cache = dict(t_cache, pages=self.t_pages.device_table(row_list))
 
         # --- step 4: batched verification (LLM) ---
-        window = torch.cat([state.pending[:, None].to(draft_res.tokens.dtype),
-                            draft_res.tokens], dim=1)          # (B, L+1)
-        with _span("engine.target_pass", {"B": B, "W": ticket.L + 1}) as sp:
+        window = torch.cat([ticket.pending[:, None].to(draft_res.tokens.dtype),
+                            draft_res.tokens], dim=1)          # (n, L+1)
+        with _span("engine.target_pass", {"B": n, "W": ticket.L + 1}) as sp:
             if needs_state_rollback(self.target_cfg):
                 logits, t_cache, snaps = self.target.forward_window(
-                    self.t_params, window, t_cache, state.target_pos,
+                    self.t_params, window, t_cache, ticket.target_pos,
                     return_snapshots=True)
             else:
                 logits, t_cache = self.target.forward_window(
-                    self.t_params, window, t_cache, state.target_pos)
+                    self.t_params, window, t_cache, ticket.target_pos)
                 snaps = None
             sp.attach(logits)
 
-        with _span("engine.verify_tokens", {"B": B, "L": ticket.L}) as sp:
+        with _span("engine.verify_tokens", {"B": n, "L": ticket.L}) as sp:
             res = verify_drafts(draft_res.tokens, draft_res.probs, logits,
                                 draft_res.q_idx, draft_res.q_val, u_accept,
                                 u_resid, bonus_gumbel, draft_len=draft_len)
@@ -497,38 +560,52 @@ class SpecEngine:
         ticket.res = res
         return ticket
 
-    def commit_rows(self, state: StreamState, ticket: RoundTicket):
+    def commit_rows(self, state: StreamState, ticket: RoundTicket,
+                    skip=None):
         """Land a verified ticket — THE host sync point of a round.
 
         ``commit_step`` updates pending / target_pos / draft_pos on device
-        for every row not frozen; the one blocking fetch is the packed
-        ``(B, L+2)`` emission that extends the host-side committed lists
-        and (paged) drives the page-pool truncation.  Returns ``(new_state,
-        accepted)``: accepted counts incl. the bonus token, 0 for frozen
-        rows."""
-        B = len(ticket.freeze)
+        for the ticket's rows only; the one blocking fetch is the packed
+        ``(n, L+2)`` emission that extends the host-side committed lists
+        and (paged) drives the page-pool truncation.  ``skip`` (aligned
+        with the ticket's rows) marks members that must NOT commit —
+        streams retired while the batch was in flight; frozen rows, rows
+        retired through the engine and ``-1`` padding rows are skipped
+        too, so a mid-verify disconnect never corrupts the rest of the
+        batch.  Returns ``(new_state, accepted)``: accepted counts incl.
+        the bonus token, 0 for skipped rows, aligned with the ticket.
+        ``last_accepted`` keeps them after a full-batch commit and is None
+        after a row subset's, as in the reference."""
+        row_list = self._ticket_rows(ticket)
+        n = len(row_list)
         res = ticket.res
-        with _span("engine.commit", {"B": B}):
-            rows_dev = host_to_device(np.arange(B, dtype=np.int32),
+        skip_np = (np.zeros(n, dtype=bool) if skip is None
+                   else np.asarray(skip, dtype=bool).copy())
+        skip_np |= ticket.freeze
+        for i, b in enumerate(row_list):
+            if b < 0 or b in self._retired:
+                skip_np[i] = True
+        with _span("engine.commit", {"B": n}):
+            rows_dev = host_to_device(np.asarray(row_list, np.int32),
                                       self.device)
-            skip_dev = host_to_device(ticket.freeze, self.device)
+            skip_dev = host_to_device(skip_np, self.device)
             pend, tpos, dpos, emission = commit_step(
                 state.pending, state.target_pos, state.draft_pos, rows_dev,
                 skip_dev, res.output_tokens, res.accept_counts)
             pack = self._host_fetch(emission)    # the ONE host sync
             accepted = pack[:, 0].astype(np.int64)
-            with _span("engine.page_free", {"B": B}):
-                for b in range(B):
-                    adv = int(pack[b, 0])
+            with _span("engine.page_free", {"B": n}):
+                for i, b in enumerate(row_list):
+                    adv = int(pack[i, 0])
                     if adv == 0:
                         continue
-                    state.committed[b].extend(pack[b, 1:1 + adv].tolist())
+                    state.committed[b].extend(pack[i, 1:1 + adv].tolist())
                     if self.cache_kind == "paged":
                         # speculative rejection hands pages straight back
                         new_len = len(state.committed[b]) - 1
                         self.t_pages.truncate(b, new_len)
                         self.d_pages.truncate(b, new_len)
-        self.last_accepted = accepted
+        self.last_accepted = accepted if ticket.rows is None else None
         new_state = StreamState(pending=pend, target_pos=tpos,
                                 draft_pos=dpos, committed=state.committed)
         return new_state, accepted
@@ -571,10 +648,12 @@ class SpecEngine:
             raise NotImplementedError(
                 "freezing streams of an SSM/hybrid target needs a pre-window "
                 "state snapshot (see ROADMAP open items)")
-        ticket = self.draft_rows(state, lengths, draws.draft_gumbel,
+        # the lockstep round IS the three continuous steps on the full batch
+        # (same dispatch shapes and draws -> identical tokens)
+        ticket = self.draft_rows(state, None, lengths, draws.draft_gumbel,
                                  vhat=vhat, freeze=frz)
-        ticket = self.verify_rows(state, ticket, draws.u_accept,
-                                  draws.u_resid, draws.bonus_gumbel)
+        ticket = self.verify_rows(ticket, draws.u_accept, draws.u_resid,
+                                  draws.bonus_gumbel)
         new_state, _ = self.commit_rows(state, ticket)
         return new_state, ticket.res, ticket.draft
 
@@ -639,7 +718,7 @@ class SpecEngine:
         if paged:
             # the TARGET maps the whole W+1 tree window up front; the draft
             # side only ever holds one run (L+1) — repair fits under both
-            self._grow_pages(state, frz_np, W + 1, L + 1)
+            self._grow_pages(state, range(B), frz_np, W + 1, L + 1)
             t_pt = self.t_pages.device_table(range(B))
             d_pt = self.d_pages.device_table(range(B))
             t_cache = dict(t_cache, pages=t_pt)

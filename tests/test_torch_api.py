@@ -1,7 +1,8 @@
 """The port's public surface, ``repro_torch.api``, against ``repro.api``.
 
 Importing the api loads no torch (as ``repro.api`` loads no jax): the
-engines, the page allocator and ``RoundDraws`` resolve on first use.  Every
+engines, the continuous engine, the page allocator and ``RoundDraws``
+resolve on first use.  Every
 module that computes on the card turns TF32 off (``repro_torch.precision``).
 The import checks run in a fresh interpreter, since by the time a test runs
 here torch is long loaded.
@@ -17,12 +18,9 @@ import repro_torch.api as tapi
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# names of repro.api that later slices of the port bring
-PENDING = {
-    "ContinuousBackend": "A8", "ContinuousEngine": "A8",
-    "GatewayClient": "A10", "GatewayConfig": "A10", "MetricsHub": "A10",
-    "MultiSpinGateway": "A10", "RoundMetrics": "A10",
-}
+# names of repro.api that later slices of the port bring (none is left:
+# continuous batching and the gateway came with ROADMAP A8 and A10)
+PENDING: dict[str, str] = {}
 
 
 def _fresh(code: str) -> str:
@@ -79,6 +77,23 @@ def test_engines_resolve_lazily():
     assert tapi.StreamState is StreamState
     assert tapi.PagePoolExhausted is PagePoolExhausted
     assert tapi.RoundDraws is RoundDraws
+    from repro_torch.serving import (
+        BatchAssembler,
+        ContinuousEngine,
+        GatewayClient,
+        IllegalTransition,
+        MetricsHub,
+        StreamFSM,
+    )
+    from repro_torch.serving.continuous import ContinuousEngine as cont_cls
+    from repro_torch.serving.gateway import GatewayClient as client_cls
+
+    assert tapi.ContinuousEngine is ContinuousEngine is cont_cls
+    assert tapi.GatewayClient is GatewayClient is client_cls
+    assert tapi.MetricsHub is MetricsHub
+    assert {c.__name__ for c in (BatchAssembler, IllegalTransition,
+                                 StreamFSM)} == {
+        "BatchAssembler", "IllegalTransition", "StreamFSM"}
     assert ServingEngine.__name__ == "ServingEngine"
     assert EngineState.__name__ == "EngineState"
     scheme = tapi.build_scheme("hete")

@@ -23,7 +23,10 @@ COPIES = ([f"configs/{p.name}" for p in sorted((SRC / "configs").glob("*.py"))]
           + [f"core/{n}.py" for n in ("goodput", "channel", "bandwidth",
                                       "lambertw", "draft_control", "schemes",
                                       "controller", "beyond", "token_tree")]
-          + ["serving/cell.py", "serving/scheduler.py", "obs/trace.py"])
+          + ["serving/cell.py", "serving/scheduler.py", "obs/trace.py"]
+          + [f"serving/gateway/{n}.py" for n in ("__init__", "client",
+                                                 "dashboard", "loadgen",
+                                                 "server", "telemetry")])
 
 _IMPORT = re.compile(r"^\s*(from|import) repro(_torch)?\.")
 
@@ -95,6 +98,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     "repro_torch.bridge:params_from_jax",
     "repro_torch.core.draws:RoundDraws.sample",
     "repro_torch.core.draws:TreeDraws.sample",
+    "repro_torch.core.draws:KeyedDraws",
 ])
 def test_entry_points_default_to_the_card(entry):
     """Every public constructor that places tensors runs on the card unless

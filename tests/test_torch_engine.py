@@ -6,7 +6,9 @@ tensors, exactly the draws the reference takes from ``PRNGKey(seed)`` —
 draft key into L step keys, one Gumbel (B, vhat) each; verification splits
 the verify key into 3 for the accept uniforms, the residual uniforms and the
 bonus Gumbel (B, V).  ``jax_draws(..., J=J)`` is the tree round's form
-(``tests/test_torch_tree.py``).  Both sides carry the same weights
+(``tests/test_torch_tree.py``).  ``JaxKeyedDraws`` is the continuous
+engine's form: the same draws at a key path (the reference derives its keys
+per dispatch, ``fold_in`` and ``split`` of one root key).  Both sides carry the same weights
 (``bridge.params_from_jax``).  Sampled tokens, accept masks, counts,
 committed lists, page tables and ``pool_stats`` must be identical; float
 outputs agree within 2e-5 (``_tol(float32)`` of ``tests/test_kernels.py``).
@@ -31,13 +33,17 @@ import torch
 
 from repro_torch import configs as tcfgs
 from repro_torch.bridge import params_from_jax
-from repro_torch.core.draws import RoundDraws, TreeDraws
+from repro_torch.core.draws import KeyedDraws, RoundDraws, TreeDraws
 
 B, MAX_LEN, VHAT, PS = 3, 96, 64, 16
 NUM_PAGES = B * 2 * (MAX_LEN // PS)
 ROUND_LENGTHS = [[4, 2, 3], [1, 4, 4], [3, 3, 2], [4, 1, 4]]
 ROUND_FREEZE = [None, [False, True, False], None, None]
 TOL = dict(rtol=2e-5, atol=2e-5)
+# rounds (commits) of the continuous and pipelined cell sessions: each
+# reference round is ~3 s of eager JAX on this host, its layer scan traced
+# anew at every forward
+CELL_STEPS = {"continuous": 6, "pipelined": 4}
 
 
 def _cfgs(cfg_mod):
@@ -95,8 +101,112 @@ def jax_draws(seed, B, L, vhat, V, J=None):
     return TreeDraws(draft_gumbel=torch.from_numpy(draft), **out)
 
 
+class JaxKeyedDraws(KeyedDraws):
+    """The reference's draws at a key path: the root is ``PRNGKey(root)``,
+    ``("fold", i)`` is ``fold_in(key, i)``, ``("split", h)`` is
+    ``split(key)[h]``; the draft half splits its key into L step keys, the
+    verify half into 3, as ``generate_drafts`` / ``verify_drafts`` do."""
+
+    def __init__(self):
+        super().__init__("cpu")
+
+    @staticmethod
+    def _key(path):
+        k = jax.random.PRNGKey(path[0])
+        for op, v in path[1:]:
+            k = jax.random.fold_in(k, v) if op == "fold" else jax.random.split(k)[v]
+        return k
+
+    def draft(self, path, L, n, vhat):
+        return torch.from_numpy(np.stack([
+            np.asarray(jax.random.gumbel(k, (n, vhat)))
+            for k in jax.random.split(self._key(path), L)]))
+
+    def verify(self, path, n, L, V):
+        k_accept, k_resid, k_bonus = jax.random.split(self._key(path), 3)
+        return (torch.from_numpy(np.array(jax.random.uniform(k_accept, (n, L)))),
+                torch.from_numpy(np.array(jax.random.uniform(k_resid, (n,)))),
+                torch.from_numpy(np.array(jax.random.gumbel(k_bonus, (n, V)))))
+
+
 def _committed(state):
     return [None if c is None else [int(t) for t in c] for c in state.committed]
+
+
+def _engine_view(eng, rows=range(4)):
+    """What a parity test holds equal after a commit: ``pool_stats`` and
+    both page tables (the page invariants are checked on the way)."""
+    eng.t_pages.check_invariants()
+    eng.d_pages.check_invariants()
+    return {"pool_stats": eng.pool_stats(),
+            "t_table": eng.t_pages.page_table(rows),
+            "d_table": eng.d_pages.page_table(rows)}
+
+
+def _barrier_steps(cont, n_steps):
+    """The forced-barrier continuous engine (``max_inflight=1``,
+    ``exact_shapes=True``) over B streams of L = 4, ``n_steps`` ticks."""
+    for b in range(B):
+        cont.add_stream(b, length=4)
+    out = []
+    for _ in range(n_steps):
+        evs = cont.step()
+        out.append({"events": [(ev.rows, np.asarray(ev.accepted), ev.occupancy,
+                                ev.seq) for ev in evs],
+                    "committed": _committed(cont.state),
+                    **_engine_view(cont.engine, range(B))})
+    return out
+
+
+def _paced_script(cont):
+    """The externally paced sequence (rows 0-3, the start batch plus the
+    late stream): 3 live rows in a ``-1``-padded bucket of 4, a commit out
+    of dispatch order, a batch merged from two draft groups, a retire while
+    that batch is in flight, and a last round on the survivors.  Returns
+    one record per commit."""
+    eng, out = cont.engine, []
+
+    def land(batch):
+        acc = cont.commit(batch)
+        out.append({"rows": list(batch.ticket.rows),
+                    "accepted": np.asarray(acc),
+                    "committed": _committed(cont.state), **_engine_view(eng)})
+
+    first = cont.dispatch_round([0, 1, 2], [3, 2, 4])    # bucket (4, 4)
+    second = cont.dispatch_round([3], [4])
+    land(second)                                         # out of order
+    land(first)
+    f = cont.fsm
+    cont._dispatch_draft_group([f[0]], np.array([4]))
+    cont._dispatch_draft_group([f[1], f[2]], np.array([2, 4]))
+    merged = cont._dispatch_verify([f[0], f[1]])         # two draft groups
+    rest = cont._dispatch_verify([f[2]])
+    cont.retire(1)                                       # mid-verify
+    land(rest)
+    land(merged)
+    land(cont.dispatch_round([0, 2, 3], [4, 4, 4]))
+    return out
+
+
+def _cell_steps(cell, reqs, n_steps=6, leave_after=2):
+    """A cell session of ``n_steps`` rounds (commits, when continuous), the
+    first request still active leaving after ``leave_after`` of them."""
+    for req in reqs:
+        cell.submit(req)
+    recs = []
+    for i in range(n_steps):
+        if i == leave_after:
+            cell.leave(cell.scheduler.active[0].rid)
+        rec = cell.step()
+        recs.append({k: getattr(rec, k) for k in (
+            "rids", "lengths", "accepted", "active", "batch_occupancy",
+            "ready_depth", "n_host_syncs", "pool_stats", "t_round")})
+    return recs
+
+
+def _cell_config_for(cell_cls, schedule):
+    return cell_cls(scheme="hete", t_ver_fix=0.03, t_ver_lin=0.002, L_max=4,
+                    max_batch=B, seed=0, schedule=schedule, max_inflight=2)
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +217,8 @@ def _reference(out_path):
     from repro import configs as jcfgs
     from repro.api import CellConfig, EngineBackend, MultiSpinCell, Request
     from repro.serving import SpecEngine
+    from repro.serving.backends import ContinuousBackend
+    from repro.serving.continuous import ContinuousEngine
 
     tcfg, dcfg = _cfgs(jcfgs)
     start, late = _prompts()
@@ -167,6 +279,36 @@ def _reference(out_path):
     out["cell_rounds"] = recs
     out["cell_summary"] = cell.summary()
     out["cell_tokens"] = {r.rid: backend.stream_tokens(r.rid) for r in reqs}
+
+    # -- continuous batching: the forced barrier, the paced sequence; one
+    # engine restarted by each start() (a new engine would compile anew) --
+    eng = engine()
+    cont = ContinuousEngine(eng, eng.start(jnp.asarray(start)),
+                            jax.random.PRNGKey(42), max_inflight=1,
+                            exact_shapes=True)
+    out["barrier"] = _barrier_steps(cont, 3)
+    out["barrier_shapes"] = sorted(cont.assembler.shapes)
+    st, rows = eng.add_streams(eng.start(jnp.asarray(start)),
+                               jnp.asarray(late))
+    assert rows == [3]
+    cont = ContinuousEngine(eng, st, jax.random.PRNGKey(5))
+    out["paced"] = _paced_script(cont)
+    out["paced_shapes"] = sorted(cont.assembler.shapes)
+
+    # -- cell sessions: continuous over ContinuousBackend, pipelined over
+    # EngineBackend --
+    for schedule, backend_cls in (("continuous", ContinuousBackend),
+                                  ("pipelined", EngineBackend)):
+        reqs = _requests(Request)
+        backend = backend_cls(eng, eng.start(jnp.asarray(start)),
+                              keep_finished_tokens=True)
+        cell = MultiSpinCell(_cell_config_for(CellConfig, schedule),
+                             backend=backend, rng=np.random.default_rng(0))
+        out[f"{schedule}_rounds"] = _cell_steps(cell, reqs,
+                                                CELL_STEPS[schedule])
+        out[f"{schedule}_summary"] = cell.summary()
+        out[f"{schedule}_tokens"] = {r.rid: backend.stream_tokens(r.rid)
+                                     for r in reqs}
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -431,19 +573,118 @@ def test_paged_kv_cache_churn_matches_reference():
         t.check_invariants()
 
 
-def test_unported_engine_paths_name_their_roadmap_item(ref):
+def test_unported_engine_paths_name_their_roadmap_item():
+    from repro_torch.launch import gateway
     from repro_torch.serving import SpecEngine
-    from repro_torch.serving.backends import ContinuousBackend
 
     tcfg, dcfg = _cfgs(tcfgs)
     with pytest.raises(NotImplementedError, match="A9"):
         SpecEngine(tcfg, dcfg, compile_mode="jit", device="cpu")
+    for flags in (["--compile", "jit"], ["--compile-cache", "cache"]):
+        args = gateway.parser().parse_args(
+            ["--backend", "engine", "--smoke-arch", "--device", "cpu"] + flags)
+        with pytest.raises(NotImplementedError, match="A9"):
+            gateway.build_cell(args)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching and the cell's other schedules
+# ---------------------------------------------------------------------------
+
+def _assert_same_view(got, want):
+    assert got["pool_stats"] == want["pool_stats"]
+    np.testing.assert_array_equal(got["t_table"], want["t_table"])
+    np.testing.assert_array_equal(got["d_table"], want["d_table"])
+
+
+def test_forced_barrier_continuous_engine_matches_reference(ref):
+    """(a) ``max_inflight=1, exact_shapes=True``: every tick commits the same
+    rows, counts and tokens as the reference's, with the same pages."""
+    from repro_torch.serving.continuous import ContinuousEngine
+
     eng = _port_engine(ref)
-    st = eng.start(torch.from_numpy(_prompts()[0]))
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.warmup(st, [(B, 4)])
-    with pytest.raises(NotImplementedError, match="A8"):
-        ContinuousBackend(eng, st)
+    cont = ContinuousEngine(eng, eng.start(torch.from_numpy(_prompts()[0])),
+                            42, max_inflight=1, exact_shapes=True,
+                            draws=JaxKeyedDraws())
+    got = _barrier_steps(cont, len(ref["barrier"]))
+    for g, w in zip(got, ref["barrier"]):
+        assert len(g["events"]) == len(w["events"]) == 1
+        for (rows, acc, occ, seq), (wrows, wacc, wocc, wseq) in zip(
+                g["events"], w["events"]):
+            assert (rows, occ, seq) == (wrows, wocc, wseq)
+            np.testing.assert_array_equal(acc, wacc)
+        assert g["committed"] == w["committed"]
+        _assert_same_view(g, w)
+    assert sorted(cont.assembler.shapes) == ref["barrier_shapes"] == [(B, 4)]
+
+
+def test_externally_paced_continuous_engine_matches_reference(ref):
+    """(b) a ``-1``-padded bucket, a commit out of dispatch order, a batch
+    merged from two draft groups and a retire mid-verify.  A padding row
+    sees no key: the reference's oracle gives page 0's mean there and the
+    port 0 (ROADMAP §C), so its draft is not compared; every commit's
+    counts, committed lists, ``pool_stats`` and page tables are exact."""
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    eng = _port_engine(ref)
+    start, late = _prompts()
+    st, rows = eng.add_streams(eng.start(torch.from_numpy(start)),
+                               torch.from_numpy(late))
+    assert rows == [3]
+    cont = ContinuousEngine(eng, st, 5, draws=JaxKeyedDraws())
+    got = _paced_script(cont)
+    assert len(got) == len(ref["paced"]) == 5
+    for g, w in zip(got, ref["paced"]):
+        assert g["rows"] == w["rows"]
+        np.testing.assert_array_equal(g["accepted"], w["accepted"])
+        assert g["committed"] == w["committed"]
+        _assert_same_view(g, w)
+    # the retired row committed nothing in the merged batch
+    assert ref["paced"][3]["rows"] == [0, 1] and got[3]["accepted"][1] == 0
+    assert sorted(cont.assembler.shapes) == ref["paced_shapes"] \
+        == [(1, 4), (2, 4), (4, 4)]
+
+
+@pytest.mark.parametrize("schedule", ["continuous", "pipelined"])
+def test_scheduled_cell_session_matches_reference(ref, schedule):
+    """(c) ``schedule="continuous"`` over ``ContinuousBackend`` and (d)
+    ``schedule="pipelined"`` over ``EngineBackend``, a request leaving
+    mid-session: every record's rids, lengths, counts, occupancy, ready
+    depth, host syncs and pools, the summary and every stream's tokens."""
+    from repro_torch.api import (
+        CellConfig,
+        ContinuousBackend,
+        EngineBackend,
+        MultiSpinCell,
+        Request,
+    )
+
+    eng = _port_engine(ref)
+    state = eng.start(torch.from_numpy(_prompts()[0]))
+    if schedule == "continuous":
+        backend = ContinuousBackend(eng, state, keep_finished_tokens=True,
+                                    draws=JaxKeyedDraws())
+    else:
+        backend = EngineBackend(eng, state, keep_finished_tokens=True,
+                                draws_fn=jax_draws)
+    reqs = _requests(Request)
+    cell = MultiSpinCell(_cell_config_for(CellConfig, schedule),
+                         backend=backend, rng=np.random.default_rng(0))
+    got = _cell_steps(cell, reqs, CELL_STEPS[schedule])
+    want = ref[f"{schedule}_rounds"]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in ("rids", "lengths", "accepted", "active"):
+            np.testing.assert_array_equal(g[k], w[k], k)
+        for k in ("batch_occupancy", "ready_depth", "n_host_syncs",
+                  "pool_stats", "t_round"):
+            assert g[k] == w[k], k
+        assert g["n_host_syncs"] == 1
+    assert cell.summary() == ref[f"{schedule}_summary"]
+    assert {r.rid: backend.stream_tokens(r.rid) for r in reqs} \
+        == ref[f"{schedule}_tokens"]
+    eng.t_pages.check_invariants()
+    eng.d_pages.check_invariants()
 
 
 def test_serve_cli_runs_on_cpu(capsys):
