@@ -61,7 +61,14 @@ package.  Phases (none catches a failure):
      unquantized caches must stay under the JAX package's budget of 0.05;
      each bf16 B9 case is printed with its split, called twice (the same
      bits) and, at unit scales, must equal bf16 B7 on the codes as bf16
-     caches bit for bit.
+     caches bit for bit.  B1, B3, B6, B7, B8 and B9 also run at head dim
+     256 (gemma-7b: B=8, H=KV=16; paligemma-3b: H=8, KV=1) and B8 at
+     whisper-large-v3's encoder and cross-attention (non-causal, 1500
+     frames), with times and bounds; and every kernel at the shapes the
+     full-width phases 14 and 17 give it: B1 at the MoE pair's verify
+     window, draft step and prefill (H = KV = 16, D = 128), B3 at its tree
+     window (J=2, L=4), B2, B4 and B5 at V = 163840, B7 and B8 at whisper's
+     decoder step and prefill (H = KV = 20, D = 64).
   4. a small-input reference check: the smoke-size engine on the card
      (kernels) against the same engine on the CPU (plain versions), same
      weights and draws, three sequential rounds then three tree rounds
@@ -74,7 +81,12 @@ package.  Phases (none catches a failure):
      with mamba2 and zamba2 smoke targets (contiguous; each of these
      launches B7 and B8): identical committed tokens; and the plain
      ``ServingEngine`` on the deepseek-7b smoke config, greedy and sampled
-     with the same noise: identical tokens
+     with the same noise: identical tokens; the MoE ``SpecEngine``
+     (moonshot smoke target, dense smoke draft) on both layouts, 3 J=1 and
+     2 tree rounds in each commit mode: identical tokens across devices and
+     commit modes; the paligemma and whisper smoke models: prefill and 3
+     one-token windows, the same next tokens, float32 logits within
+     ``SMOKE_LOGIT_TOL``
   5. the J=1 path at full width: Llama-2-7B verifying TinyLlama-1.1B drafts
      in bfloat16, paged (page_size 16, max_len 1024), under a
      ``MultiSpinCell`` (scheme hete) with 8 requests of 128-token prompts
@@ -140,7 +152,22 @@ package.  Phases (none catches a failure):
      launch, no plain call, the pools pass their invariants; TTFT p50/p95
      and tokens/s; then 3 rounds of the same cell stepped directly (8 more
      requests) under torch.profiler
- 13. summary lines: each profiled path's device busy, wall and idle share
+ 14. the MoE path at full width (``moe_path``): moonshot-v1-16b-a3b and a
+     2-layer dense draft at its widths, bf16, paged, 8 x 128-token prompts,
+     10 J=1 rounds of a ``MultiSpinCell(scheme="hete", L_max=4)`` (one
+     host sync each), a request leaving (``cell.leave``) before round 5
+     (its pages back at once), then 4 tree rounds (J=2, L=4) through
+     ``spin_round`` on the cell's engine state, one MoE
+     layer's ``moe_apply`` under ``set_sync_debug_mode("error")``, 3
+     profiled rounds, the drain (every page back)
+ 15. gemma-7b (head dim 256) through phase 9's ``plain_decode_path``, 32
+     steps: B8 28 in ``start()``, B7 28 a step
+ 16. paligemma-3b (``vlm_path``): 8 x (256 patch embeds + 128 tokens),
+     prefill and 32 greedy one-token windows, contiguous and paged, the
+     two layouts' logits compared
+ 17. whisper-large-v3 (``encdec_path``): 8 x 1500 frames, 8 x 64 decoder
+     tokens, 32 greedy steps (B7 and B8 32 each a step)
+ 18. summary lines: each profiled path's device busy, wall and idle share
      per round, step or batch; per path, the launches of B3, B6, B1, B7,
      B2, B4 and B5 per round, step or batch (counters) beside their
      profiled calls and device ms; the gateway's TTFT and tokens/s; then
@@ -153,6 +180,9 @@ Each path's counters are set to 0 just before its engine's ``start()`` and
 read after its last checked round or step; ``launches`` in the kernels line
 sums them over the paths, prefills included (``launches_per_round`` counts
 per step on the plain decode path and per 32-layer pass on the int8 path).
+Paths with two kinds of round keep a run each, so that each
+``launches_per_round`` is one kind's own: the MoE path's J=1 and tree
+rounds, paligemma's contiguous and paged layouts.
 """
 
 from __future__ import annotations
@@ -175,12 +205,22 @@ PAGED_CASES = [
     ("tinyllama-1.1b draft step", (8, 1, 32, 4, 64, 16, 512)),
     ("llama2-7b prefill", (8, 127, 32, 32, 128, 16, 1)),
     ("tinyllama-1.1b prefill", (8, 127, 32, 4, 64, 16, 1)),
+    # head dim 256: gemma-7b (H = KV = 16) and paligemma-3b (H = 8, KV = 1)
+    ("gemma-7b verify window", (8, 9, 16, 16, 256, 16, 512)),
+    ("gemma-7b prefill", (8, 127, 16, 16, 256, 16, 1)),
+    ("paligemma-3b step", (8, 1, 8, 1, 256, 16, 400)),
+    ("paligemma-3b prefill", (8, 384, 8, 1, 256, 16, 1)),
+    # the MoE path: moonshot-v1-16b-a3b and its 2-layer draft (H = KV = 16)
+    ("moonshot verify window L=4", (8, 5, 16, 16, 128, 16, 140)),
+    ("moonshot draft step", (8, 1, 16, 16, 128, 16, 140)),
+    ("moonshot prefill", (8, 127, 16, 16, 128, 16, 1)),
 ]
 PAGED_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
 VERIFY_CASES = [
     # name, (B, L, V, Vhat), rows 0 and 1 at Z = 0 and nothing crossing
     ("llama pair, V=32000", (8, 8, 32000, 64), False),
     ("qwen3.5 pair, V=151936", (8, 8, 151936, 64), False),
+    ("moonshot pair L=4, V=163840", (8, 4, 163840, 64), False),
     ("llama pair, Z = 0 and no crossing", (8, 8, 32000, 64), True),
 ]
 VERIFY_HEADLINE = "llama pair, V=32000"
@@ -190,6 +230,9 @@ TREE_CASES = [
     ("llama2-7b tree window J=2 L=6", (8, 2, 6, 32, 32, 128, 16, 512), False),
     ("llama2-7b ceiling J=6 L=8", (8, 6, 8, 32, 32, 128, 16, 512), False),
     ("llama2-7b chain T=13", (8, 2, 6, 32, 32, 128, 16, 512), True),
+    ("gemma-7b tree window J=2 L=6", (8, 2, 6, 16, 16, 256, 16, 512), False),
+    ("paligemma-3b tree window J=2 L=6", (8, 2, 6, 8, 1, 256, 16, 512), False),
+    ("moonshot tree window J=2 L=4", (8, 2, 4, 16, 16, 128, 16, 150), False),
 ]
 TREE_HEADLINE = ("llama2-7b tree window J=2 L=6", "bfloat16")
 SOFTMAX_CASES = [
@@ -197,6 +240,7 @@ SOFTMAX_CASES = [
     ("tree nodes J=2 L=6", (96, 32000)),
     ("ceiling J=6 L=8", (384, 32000)),
     ("qwen3.5 vocab", (96, 151936)),
+    ("moonshot tree nodes J=2 L=4", (64, 163840)),
     ("unaligned rows V=4097", (5, 4097)),
     ("V=300, one chunk", (5, 300)),
     ("V=1", (3, 1)),
@@ -206,6 +250,7 @@ RESIDUAL_CASES = [
     # name, (N, V): rows 0-2 at Z = 0, a tie of p's maxima, no crossing
     ("llama vocab", (8, 32000)),
     ("qwen3.5 vocab", (8, 151936)),
+    ("moonshot vocab", (8, 163840)),
     ("unaligned rows V=4097", (5, 4097)),
     ("V=300, one chunk", (5, 300)),
     ("V=1", (3, 1)),
@@ -219,6 +264,9 @@ CONTIGUOUS_TREE_CASES = [
     ("llama2-7b tree window J=2 L=6", (8, 2, 6, 32, 32, 128, 1024, 512), False),
     ("llama2-7b ceiling J=6 L=8", (8, 6, 8, 32, 32, 128, 1024, 512), False),
     ("llama2-7b chain T=13", (8, 2, 6, 32, 32, 128, 1024, 512), True),
+    ("gemma-7b tree window J=2 L=6", (8, 2, 6, 16, 16, 256, 1024, 512), False),
+    ("paligemma-3b tree window J=2 L=6", (8, 2, 6, 8, 1, 256, 1024, 512),
+     False),
 ]
 CONTIGUOUS_TREE_HEADLINE = ("llama2-7b tree window J=2 L=6", "bfloat16")
 SSD_CASES = [
@@ -237,6 +285,9 @@ DECODE_CASES = [
     ("llama2-7b plain decode", (8, 32, 32, 128, 1024, (127, 190))),
     ("lengths 1, S, past S", (4, 32, 4, 64, 1024, [1, 1024, 1100, 700])),
     ("split, a length-0 row", (2, 32, 4, 128, 1024, [0, 900])),
+    ("gemma-7b decode step", (8, 16, 16, 256, 1024, (128, 160))),
+    ("paligemma-3b decode step", (8, 8, 1, 256, 512, (384, 416))),
+    ("whisper-large-v3 decoder step", (8, 20, 20, 64, 128, (64, 96))),
 ]
 DECODE_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
 FLASH_CASES = [
@@ -246,6 +297,13 @@ FLASH_CASES = [
     ("zamba2-2.7b shared-attention prefill", (8, 127, 127, 32, 32, 80, True)),
     ("Sq < Skv", (2, 70, 200, 8, 2, 64, True)),
     ("non-causal", (2, 100, 100, 8, 2, 80, False)),
+    ("gemma-7b prefill", (8, 128, 128, 16, 16, 256, True)),
+    ("paligemma-3b prefill", (8, 384, 384, 8, 1, 256, True)),
+    ("whisper-large-v3 encoder", (8, 1500, 1500, 20, 20, 64, False)),
+    ("whisper-large-v3 decoder prefill", (8, 64, 64, 20, 20, 64, True)),
+    ("whisper-large-v3 cross-attention prefill",
+     (8, 64, 1500, 20, 20, 64, False)),
+    ("whisper-large-v3 cross-attention step", (8, 1, 1500, 20, 20, 64, False)),
 ]
 FLASH_HEADLINE = ("llama2-7b prefill", "bfloat16")
 Q8_CASES = [
@@ -255,6 +313,8 @@ Q8_CASES = [
     ("zamba2-2.7b shared-attention step", (8, 32, 32, 80, 1024, (128, 160))),
     ("jax kernel bench", (4, 8, 4, 64, 512, [256] * 4)),
     ("lengths 1, S, past S, 0", (4, 32, 4, 64, 1024, [1, 1024, 1100, 0])),
+    ("gemma-7b decode step", (8, 16, 16, 256, 1024, (128, 160))),
+    ("paligemma-3b decode step", (8, 8, 1, 256, 1024, (384, 416))),
 ]
 Q8_HEADLINE = ("llama2-7b plain decode", "bfloat16")
 Q8_BUDGET = 0.05    # int8 against exact K/V, tests/test_kernels.py:475
@@ -1694,17 +1754,17 @@ def window_op(kernel_name):
 
 
 def plain_decode_path(torch, ops, cfg, *, K=8, M=128, steps=DECODE_STEPS,
-                      max_len=1024):
+                      max_len=1024, label="plain decode path"):
     """Phase 9: the plain (non-speculative) engine at full width: ``K``
     prompts of ``M`` tokens, ``steps`` sampled decode steps.  Counters are
     set to 0 just before ``start()``, which must launch B8 once per layer;
     every step launches B7 once per layer and makes one host fetch; every
     plain counter stays 0.  Returns ((launch counts, per-step records,
-    launch counts of start), the engine, its last state)."""
+    launch counts of start), the engine, its last state).  Phase 15 runs
+    it on ``gemma-7b`` (head dim 256) under its own ``label``."""
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import gumbel_noise
 
-    label = "plain decode path"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, max_len=max_len, cache_dtype=torch.bfloat16)
@@ -1833,6 +1893,493 @@ def int8_path(torch, ops, cases, da, daq, eng, state):
     return counts, [rec], at_start
 
 
+SMOKE_LOGIT_TOL = 1e-4   # float32 logits, card against CPU (see below)
+
+
+def moe_vlm_encdec_reference_check(torch, np):
+    """Phase 4, the slice-12 models at smoke size, card against CPU with the
+    same weights and draws: the MoE ``SpecEngine`` (``moonshot-v1-16b-a3b``
+    smoke target, a leading dense block and shared experts, beside the
+    dense smoke draft) on both layouts, 3 J=1 and 2 tree rounds (J = 2) in
+    each commit mode: committed tokens equal across devices and across the
+    commit modes; ``paligemma-3b`` (prefix embeds, both layouts) and
+    ``whisper-large-v3`` (frames) smoke models: prefill and 3 one-token
+    windows, the next tokens (argmax) equal and the float32 logits within
+    ``SMOKE_LOGIT_TOL`` (the kernels' float32 band is 2e-5 per attention
+    call; two layers of float32 products summed in other orders on the two
+    devices move logits of magnitude ~1 by up to ~1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import RoundDraws, TreeDraws
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import SpecEngine
+
+    tcfg = get_config("moonshot-v1-16b-a3b").smoke()
+    dcfg = get_config("qwen2.5-3b").smoke().replace(
+        num_layers=1, d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+        d_ff=64, name="draft-smoke")
+    prompts = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 257, (3, 10)).astype(np.int32))
+    rounds = [(1, [4, 2, 3]), (1, [1, 4, 4]), (1, [3, 4, 2]), (2, [4, 3, 4]),
+              (2, [2, 4, 3])]
+    committed, ref_params = {}, None
+    for layout in ("paged", "contiguous"):
+        for commit in ("scatter", "repair"):
+            for dev in ("cpu", "cuda"):
+                eng = SpecEngine(tcfg, dcfg, max_len=96, cache_kind=layout,
+                                 tree_commit=commit, device=dev)
+                if ref_params is None:
+                    eng.init_params(0)
+                    ref_params = (eng.t_params, eng.d_params)
+                else:
+                    eng.t_params, eng.d_params = (_to(torch, p, dev)
+                                                  for p in ref_params)
+                ops.reset_counts()
+                st = eng.start(prompts.to(dev))
+                for r, (J, lengths) in enumerate(rounds):
+                    L = max(lengths)
+                    draws = (RoundDraws.sample(300 + r, 3, L, 64, 257,
+                                               device="cpu") if J == 1 else
+                             TreeDraws.sample(300 + r, 3, J, L, 64, 257,
+                                              device="cpu"))
+                    st, _, _ = eng.spin_round(st, np.asarray(lengths),
+                                              draws.to(dev), draft_width=J)
+                if dev == "cuda":
+                    c = ops.counts()
+                    assert all(v["plain"] == 0 for v in c.values()), c
+                committed[(layout, commit, dev)] = [[int(t) for t in row]
+                                                    for row in st.committed]
+        same = all(committed[(layout, c, "cpu")] == committed[(layout, c, "cuda")]
+                   for c in ("scatter", "repair"))
+        modes = committed[(layout, "scatter", "cuda")] \
+            == committed[(layout, "repair", "cuda")]
+        log(f"reference check (MoE SpecEngine, moonshot smoke target, "
+            f"{layout}, 3 J=1 + 2 tree rounds): card == CPU committed tokens "
+            f"in both commit modes: {same}; scatter == repair: {modes}; "
+            f"lengths {[len(c) for c in committed[(layout, 'scatter', 'cuda')]]}")
+        if not (same and modes):
+            raise AssertionError(f"MoE engine {layout}: {committed}")
+
+    rng = np.random.default_rng(4)
+    for arch in ("paligemma-3b", "whisper-large-v3"):
+        cfg = get_config(arch).smoke()
+        B, S = 3, 7
+        P = cfg.num_patches if cfg.family == "vlm" else cfg.encoder_seq_len
+        prefix = torch.from_numpy(
+            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+        layouts = ("contiguous", "paged") if cfg.family == "vlm" else (
+            "contiguous",)
+        for layout in layouts:
+            logits, nxt = {}, None
+            for dev in ("cpu", "cuda"):
+                model = build_model(cfg, device=dev)
+                if dev == "cpu":
+                    params = model.init(0)
+                    cpu_params = params
+                else:
+                    params = _to(torch, cpu_params, dev)
+                if layout == "paged":
+                    n_slots = 8
+                    cache = dict(model.init_paged_cache(B * n_slots, 16,
+                                                        torch.float32),
+                                 pages=torch.arange(B * n_slots, dtype=torch.int32,
+                                                    device=dev).reshape(B, n_slots))
+                else:
+                    cache = model.init_cache(B, 128, torch.float32)
+                ops.reset_counts()
+                out, cache, _ = model.prefill(params, tokens.to(dev), cache,
+                                              prefix_embeds=prefix.to(dev))
+                seq = [out[:, -1].float().cpu()]
+                pos = torch.full((B,), out.shape[1], dtype=torch.int32,
+                                 device=dev)
+                for i in range(3):
+                    step = (seq[-1].argmax(-1) if dev == "cpu"
+                            else nxt[i]).to(dev, torch.int32)[:, None]
+                    if dev == "cpu":
+                        nxt = (nxt or []) + [step[:, 0].cpu()]
+                    out, cache = model.forward_window(params, step, cache, pos)
+                    seq.append(out[:, -1].float().cpu())
+                    pos = pos + 1
+                if dev == "cuda":
+                    c = ops.counts()
+                    assert all(v["plain"] == 0 for v in c.values()), c
+                    launched = {k: v["kernel"] for k, v in c.items()
+                                if v["kernel"]}
+                logits[dev] = torch.stack(seq)
+            err = float((logits["cpu"] - logits["cuda"]).abs().max())
+            same = torch.equal(logits["cpu"].argmax(-1),
+                               logits["cuda"].argmax(-1))
+            log(f"reference check ({arch} smoke model, {layout}, prefill with "
+                f"{P} prefix rows + 3 one-token windows): card == CPU next "
+                f"tokens {same}; max|logits err| {err:.3e} (band "
+                f"{SMOKE_LOGIT_TOL}); card launches {launched}")
+            if not same or err > SMOKE_LOGIT_TOL:
+                raise AssertionError(f"{arch} {layout}: tokens equal {same}, "
+                                     f"logits err {err}")
+
+
+MOE_J1_ROUNDS = 10
+MOE_TREE_ROUNDS = 4
+MOE_LEAVE_ROUND = 5
+MOE_L = 4
+
+
+def moe_path(torch, np, ops, *, K=8, M=128, NEW=64, max_len=512):
+    """Phase 14: the MoE target at full width, bfloat16, paged:
+    ``moonshot-v1-16b-a3b`` (48 layers, 64 experts top-6, two shared
+    experts, one leading dense block, V = 163840) verifying a 2-layer dense
+    draft at its widths and vocabulary (the target's config with
+    ``family="dense"``, ``num_layers=2`` and the expert fields zeroed, not
+    registered), both initialised on the card in bfloat16.  ``K`` requests
+    of ``M``-token prompts under ``MultiSpinCell(scheme="hete")`` with
+    ``L_max = MOE_L`` (each device's own length): ``MOE_J1_ROUNDS`` J=1
+    rounds through ``cell.step``, request 3 leaving (``cell.leave``) before
+    round ``MOE_LEAVE_ROUND`` with its pages back at once.  Then
+    ``MOE_TREE_ROUNDS`` tree rounds (J = 2, L = ``MOE_L``, scatter commit)
+    through ``spin_round`` on the cell's engine state with the departed row
+    frozen: the cell's schemes plan one width a round and ``multidraft``,
+    the cell's tree scheme, plans J and L for a dense pair's costs, so the
+    width is fixed here.  Every J=1 round makes exactly one host sync, a
+    tree round two; every live row commits >= 1 token; no plain call.  Then
+    one MoE layer's ``moe_apply`` at the verify window's shape under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the dispatch makes no
+    synchronizing call), 3 profiled J=1 cell rounds, and the drain (every
+    request leaves): every page of both pools back.  Returns {"J=1": run,
+    "tree": run}, each run (launch counts, per-round records, launch counts
+    of start) of its own rounds only (the tree run's start is empty)."""
+    from repro_torch.api import (
+        CellConfig,
+        ChannelConfig,
+        EngineBackend,
+        MultiSpinCell,
+        Request,
+    )
+    from repro_torch.configs import get_config
+    from repro_torch.core.draws import TreeDraws
+    from repro_torch.models.layers import moe_apply
+    from repro_torch.serving import SpecEngine
+
+    label = "MoE path"
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    tcfg = get_config("moonshot-v1-16b-a3b").replace(**bf16)
+    dcfg = tcfg.replace(name="moonshot-draft-2l", family="dense",
+                        num_layers=2, num_experts=0, top_k=0, moe_d_ff=0,
+                        num_shared_experts=0, shared_d_ff=0, first_k_dense=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = SpecEngine(tcfg, dcfg, max_len=max_len, cache_dtype=torch.bfloat16,
+                     cache_kind="paged", page_size=16)
+    eng.init_params(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, tcfg.vocab_size, (K, M), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t1 = time.perf_counter()
+    st = eng.start(prompts)
+    torch.cuda.synchronize()
+    at_start = ops.counts()
+    assert at_start["paged_attention"]["kernel"] == tcfg.num_layers \
+        + dcfg.num_layers, at_start
+    assert all(c["plain"] == 0 for c in at_start.values()), at_start
+    log(f"{label}: weights in {t1 - t0:.2f} s, paged prefill of {K}x{M} in "
+        f"{time.perf_counter() - t1:.2f} s; pool {eng.num_pages} pages; params "
+        f"target {eng.target.num_params(eng.t_params)} draft "
+        f"{eng.draft.num_params(eng.d_params)}; cache leaves "
+        f"{sorted(eng.t_cache)}; cache bytes {eng.pool_stats()['cache_bytes']}; "
+        f"device memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB; launches in start() "
+        f"{ {k: v['kernel'] for k, v in at_start.items() if v['kernel']} }")
+    V = tcfg.vocab_size
+    backend = EngineBackend(eng, st)
+    rng = np.random.default_rng(0)
+    cell = MultiSpinCell(
+        CellConfig(scheme="hete", channel=ChannelConfig(vocab_size=V),
+                   t_ver_fix=0.035, t_ver_lin=0.0177, L_max=MOE_L,
+                   max_batch=K),
+        backend=backend, rng=rng)
+    host_prompts = prompts.cpu().numpy()
+    for i in range(K):
+        cell.submit(Request(rid=i, prompt_len=M, max_new_tokens=NEW,
+                            alpha=float(rng.choice([0.71, 0.74, 0.86])),
+                            T_S=0.009 * float(rng.uniform(0.85, 1.15)),
+                            prompt=tuple(int(t) for t in host_prompts[i])))
+    left = 3
+    path_ops = {1: ("paged_attention", "fused_verify_sample"),
+                2: ("paged_attention", "paged_tree_attention",
+                    "gather_softmax_prob", "residual_sample")}
+    rounds = {1: [], 2: []}
+
+    def lens():
+        return [0 if c is None else len(c) for c in backend.state.committed]
+
+    def one_round(i, J, run):
+        before = ops.counts()
+        h0 = eng.host_syncs
+        lens0 = lens()
+        t = time.perf_counter()
+        acc, L = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = ops.counts()
+        live = np.array([b != left or i < MOE_LEAVE_ROUND for b in range(K)])
+        assert (acc[live] >= 1).all() and not acc[~live].any(), (i, acc)
+        assert [n - n0 for n, n0 in zip(lens(), lens0)] == acc.tolist()
+        assert eng.host_syncs - h0 == (1 if J == 1 else 2), \
+            f"round {i}: {eng.host_syncs - h0} syncs"
+        for op in path_ops[J]:
+            assert after[op]["kernel"] > before[op]["kernel"], (i, op)
+        assert all(c["plain"] == 0 for c in after.values()), after
+        eng.t_pages.check_invariants()
+        eng.d_pages.check_invariants()
+        per = {op: after[op]["kernel"] - before[op]["kernel"]
+               for op in ("paged_attention", "fused_verify_sample",
+                          "paged_tree_attention", "gather_softmax_prob",
+                          "residual_sample")}
+        rounds[J].append({"round": i, "ms": 1e3 * dt, "J": J, "lengths": L,
+                          "accepted": acc.tolist(),
+                          "committed": int(acc.sum()), "launches": per})
+        log(f"{label} round {i:2d}: {1e3 * dt:9.2f} ms  J={J}  L={L}  "
+            f"accepted={acc.tolist()}  launches {per}")
+
+    def cell_round():
+        rec = cell.step()
+        assert rec is not None and rec.draft_width == 1 and rec.active.all()
+        acc = np.asarray(eng.last_accepted)   # per engine row, 0 if frozen
+        assert int(acc.sum()) == int(np.sum(rec.accepted)), (acc, rec)
+        return acc, rec.lengths.tolist()
+
+    for i in range(MOE_J1_ROUNDS):
+        if i == MOE_LEAVE_ROUND:
+            held = (int((eng.t_pages.page_table([left]) >= 0).sum()),
+                    int((eng.d_pages.page_table([left]) >= 0).sum()))
+            free0 = (eng.t_pages.num_free_pages, eng.d_pages.num_free_pages)
+            cell.leave(left)
+            back = (eng.t_pages.num_free_pages - free0[0],
+                    eng.d_pages.num_free_pages - free0[1])
+            log(f"{label}: request {left} leaves before round {i}: pages "
+                f"back at once (target, draft) {back} of {held} it held")
+            assert back == held and held[0] > 0, (back, held)
+        one_round(i, 1, cell_round)
+    j1_counts = ops.counts()
+
+    freeze = np.zeros(K, dtype=bool)
+    freeze[left] = True
+
+    def tree_round(i):
+        def run():
+            draws = TreeDraws.sample(700 + i, K, 2, MOE_L, 64, V,
+                                     device="cuda")
+            backend.state, _, _ = eng.spin_round(
+                backend.state, np.full(K, MOE_L), draws, freeze=freeze,
+                draft_width=2)
+            return np.asarray(eng.last_accepted), [MOE_L] * K
+        return run
+
+    for i in range(MOE_J1_ROUNDS, MOE_J1_ROUNDS + MOE_TREE_ROUNDS):
+        one_round(i, 2, tree_round(i))
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    parts = []
+    for J, kind in ((1, "J=1 rounds (hete)"), (2, "tree rounds (J=2)")):
+        rs = rounds[J]
+        ms = sum(r["ms"] for r in rs)
+        parts.append(f"{len(rs)} {kind}, mean {ms / len(rs):.2f} ms, "
+                     f"{sum(r['committed'] for r in rs) / ms * 1e3:.2f} "
+                     f"tokens/s")
+    log(f"{label}: " + "; ".join(parts) + f"; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    # the MoE dispatch at the verify window's shape makes no sync
+    blk = eng.t_params["blocks"][0]
+    x = torch.randn((K, MOE_L + 1, tcfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe_apply(blk["moe"], x, eng.target.moe_cfg,
+                           capacity_factor=eng.target.no_drop_capacity)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(aux)
+    log(f"{label}: moe_apply at the verify window ({K}, {MOE_L + 1}, "
+        f"{tcfg.d_model}) under set_sync_debug_mode('error'): no "
+        f"synchronizing call")
+
+    profile_rounds(torch, cell.step, PROFILE_ROUNDS, label)
+    for r in list(cell.scheduler.active):
+        cell.leave(r.rid)
+    assert eng.t_pages.num_free_pages == eng.num_pages
+    assert eng.d_pages.num_free_pages == eng.num_pages
+    log(f"{label}: drained: every page of both pools back "
+        f"({eng.num_pages} each)")
+    tree_counts = {op: {"kernel": counts[op]["kernel"]
+                        - j1_counts[op]["kernel"], "plain": 0}
+                   for op in counts}
+    none = {op: {"kernel": 0, "plain": 0} for op in counts}
+    return {"J=1": (j1_counts, rounds[1], at_start),
+            "tree": (tree_counts, rounds[2], none)}
+
+
+def vlm_path(torch, ops, *, K=8, P=256, M=128, steps=32, max_len=512):
+    """Phase 16: ``paligemma-3b`` at full width in bfloat16 (head dim 256,
+    MQA): ``K`` rows of ``P`` patch embeddings and ``M`` text tokens,
+    prefill then ``steps`` one-token windows (greedy), on the contiguous
+    layout (B8 once per layer in the prefill, B7 once per layer a step) and
+    through a paged view of the same tokens (B1 throughout).  Checks:
+    shapes, finite logits, the launches, and that the two layouts agree
+    (the same function through other kernels, in bfloat16: the largest
+    logit difference is printed and must stay under 1, where a wrong head
+    dim would move logits of magnitude ~1 by their own size).  Returns
+    {layout: (launch counts, per-step records, launch counts of the
+    prefill)}, each of that layout's run alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, has_prefix_embeds
+
+    label = "paligemma path"
+    cfg = get_config("paligemma-3b").replace(param_dtype="bfloat16",
+                                             compute_dtype="bfloat16")
+    assert has_prefix_embeds(cfg) and cfg.num_patches == P
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prefix = torch.randn((K, P, cfg.d_model), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (K, M), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    log(f"{label}: weights in {time.perf_counter() - t0:.2f} s, params "
+        f"{model.num_params(params)}")
+    n_slots = max_len // 16
+    out, runs = {}, {}
+    for layout in ("contiguous", "paged"):
+        if layout == "paged":
+            cache = dict(model.init_paged_cache(K * n_slots, 16, torch.bfloat16),
+                         pages=torch.arange(K * n_slots, dtype=torch.int32,
+                                            device="cuda").reshape(K, n_slots))
+        else:
+            cache = model.init_cache(K, max_len, torch.bfloat16)
+        ops.reset_counts()
+        t = time.perf_counter()
+        logits, cache, _ = model.prefill(params, tokens, cache,
+                                         prefix_embeds=prefix)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t
+        start = ops.counts()
+        prefill_op = "flash_attention" if layout == "contiguous" else \
+            "paged_attention"
+        assert logits.shape == (K, P + M, cfg.vocab_size)
+        assert start[prefill_op]["kernel"] == cfg.num_layers, start
+        seq = [logits[:, -1].float()]
+        pos = torch.full((K,), P + M, dtype=torch.int32, device="cuda")
+        step_op = "decode_attention" if layout == "contiguous" else \
+            "paged_attention"
+        step_s, records = 0.0, []
+        for i in range(steps):
+            # the paged view is fed the contiguous run's greedy tokens
+            nxt = (out["contiguous"][i] if layout == "paged"
+                   else seq[-1]).argmax(-1).to(torch.int32)[:, None]
+            before = ops.counts()[step_op]["kernel"]
+            t = time.perf_counter()
+            logits, cache = model.forward_window(params, nxt, cache, pos)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            step_s += dt
+            assert ops.counts()[step_op]["kernel"] - before == cfg.num_layers
+            seq.append(logits[:, -1].float())
+            pos = pos + 1
+            records.append({"layout": layout, "step": i, "ms": 1e3 * dt})
+        counts = ops.counts()
+        assert all(c["plain"] == 0 for c in counts.values()), counts
+        out[layout] = torch.stack(seq)
+        assert torch.isfinite(out[layout]).all()
+        runs[layout] = (counts, records, start)
+        log(f"{label} ({layout}): prefill of {K} x ({P} patches + {M} tokens) "
+            f"in {1e3 * t_pre:.2f} ms ({start[prefill_op]['kernel']} "
+            f"{prefill_op} launches), {steps} one-token windows, mean "
+            f"{1e3 * step_s / steps:.2f} ms ({K * steps / step_s:.2f} tokens/s); "
+            f"launches {({k: v['kernel'] for k, v in counts.items() if v['kernel']})}")
+    diff = float((out["contiguous"] - out["paged"]).abs().max())
+    top1 = float((out["contiguous"].argmax(-1) == out["paged"].argmax(-1))
+                 .float().mean())
+    log(f"{label}: contiguous vs paged logits max|diff| {diff:.4f}, top-1 "
+        f"agreement {top1:.3f} over {steps + 1} positions x {K} rows "
+        f"(logit std {float(out['contiguous'].std()):.3f})")
+    assert diff < 1.0, diff
+    return runs
+
+
+def encdec_path(torch, ops, *, K=8, M=64, steps=32, max_len=128):
+    """Phase 17: ``whisper-large-v3`` at full width in bfloat16: encode
+    ``K`` x 1500 frames (B8 non-causal, 32 layers), prefill ``K`` x ``M``
+    decoder tokens (B8 causal for the self-attention and non-causal for the
+    cross-attention, each layer), then ``steps`` greedy decode steps (B7
+    for the self-attention, B8 non-causal over the 1500 frames for the
+    cross-attention, each layer).  Returns (launch counts, per-step
+    records, launch counts of the prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    label = "whisper path"
+    cfg = get_config("whisper-large-v3").replace(param_dtype="bfloat16",
+                                                 compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((K, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                         device="cuda", dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (K, M), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cache = model.init_cache(K, max_len, torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t1 = time.perf_counter()
+    logits, cache, _ = model.prefill(params, tokens, cache,
+                                     prefix_embeds=frames)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t1
+    at_start = ops.counts()
+    n = cfg.num_layers
+    assert at_start["flash_attention"]["kernel"] == \
+        cfg.num_encoder_layers + 2 * n, at_start
+    assert logits.shape == (K, M, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    log(f"{label}: weights in {t1 - t0:.2f} s, params "
+        f"{model.num_params(params)}; encode {K} x {cfg.encoder_seq_len} "
+        f"frames + prefill {K} x {M} tokens in {1e3 * t_pre:.2f} ms; launches "
+        f"{ {k: v['kernel'] for k, v in at_start.items() if v['kernel']} }")
+    pos = torch.full((K,), M, dtype=torch.int32, device="cuda")
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    records, total_s = [], 0.0
+    for i in range(steps):
+        before = ops.counts()
+        t = time.perf_counter()
+        logits, cache = model.forward_window(params, nxt, cache, pos)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = ops.counts()
+        assert after["decode_attention"]["kernel"] \
+            - before["decode_attention"]["kernel"] == n
+        assert after["flash_attention"]["kernel"] \
+            - before["flash_attention"]["kernel"] == n
+        assert torch.isfinite(logits).all()
+        total_s += dt
+        records.append({"step": i, "ms": 1e3 * dt})
+        pos = pos + 1
+    counts = ops.counts()
+    assert all(c["plain"] == 0 for c in counts.values()), counts
+    log(f"{label}: {steps} decode steps of {K} streams, mean "
+        f"{1e3 * total_s / steps:.2f} ms, {K * steps / total_s:.2f} tokens/s; "
+        f"launches {({k: v['kernel'] for k, v in counts.items() if v['kernel']})}")
+    return counts, records, at_start
+
+
 def main() -> int:
     import torch
 
@@ -1888,6 +2435,7 @@ def main() -> int:
     # 4. small-input reference check
     reference_check(torch, np)
     serving_engine_reference_check(torch, np)
+    moe_vlm_encdec_reference_check(torch, np)
 
     # 5. the J=1 path, 6. the tree path, 7. the contiguous tree path,
     # 8. the hybrid path and 9. the plain decode path, each on its own
@@ -1945,6 +2493,22 @@ def main() -> int:
     free("continuous")
     runs["gateway"] = gateway_path(torch, ops)
     free("gateway")
+    # 14. the MoE path, 15. gemma-7b's plain decode path (head dim 256),
+    # 16. paligemma-3b and 17. whisper-large-v3 at full width, each freed
+    # before the next
+    for rounds_of, run in moe_path(torch, np, ops).items():
+        runs[f"moe {rounds_of}"] = run
+    free("MoE")
+    gemma = get_config("gemma-7b").replace(**bf16)
+    runs["gemma decode"], eng, state = plain_decode_path(
+        torch, ops, gemma, steps=32, label="gemma-7b decode path")
+    del eng, state
+    free("gemma-7b")
+    for layout, run in vlm_path(torch, ops).items():
+        runs[f"paligemma {layout}"] = run
+    free("paligemma-3b")
+    runs["whisper"] = encdec_path(torch, ops)
+    free("whisper-large-v3")
 
     for label, prof in PROFILES.items():
         log(f"summary {label}: device busy {prof['device_busy_ms']:.2f} "
@@ -1953,7 +2517,8 @@ def main() -> int:
     labels = {"j1": "J=1 path", "tree": "tree path",
               "contiguous tree": "contiguous tree path",
               "hybrid": "hybrid path", "plain decode": "plain decode path",
-              "continuous": "continuous path", "gateway": "gateway path"}
+              "continuous": "continuous path", "gateway": "gateway path",
+              "moe J=1": "MoE path", "gemma decode": "gemma-7b decode path"}
     for path, (counts, rounds, start) in runs.items():
         prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
         parts = []
@@ -1974,7 +2539,7 @@ def main() -> int:
         f"{GATEWAY['ttft_p50_s']:.4f} s, p95 {GATEWAY['ttft_p95_s']:.4f} s, "
         f"{GATEWAY['tokens_per_s']:.2f} tokens/s")
 
-    # 13. result lines
+    # 18. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))

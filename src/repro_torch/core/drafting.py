@@ -97,7 +97,7 @@ def generate_draft_forest(model, params, cache, pending: torch.Tensor,
         if keep_windows:
             snaps.append({leaf: gather_kv_window(cache[leaf], win_pos,
                                                  page_table=page_table)
-                          for leaf in ("k", "v")})
+                          for leaf in cache if leaf != "pages"})
     windows = None
     if keep_windows:
         windows = {leaf: torch.stack([s[leaf] for s in snaps], dim=2)

@@ -37,12 +37,13 @@
 // D + 4 floats: 16-byte aligned, float4 reads free of bank conflicts),
 // compute the G x 64 scores one key per thread, update m / l per row (a warp
 // per row) and accumulate P V with each thread owning four output columns of
-// a few rows.  About 80 KB of dynamic shared memory at D = 128.
+// a few rows.  About 80 KB of dynamic shared memory at D = 128, 151 KB at
+// D = 256.
 //
 // B9, decode_attention_q8_launch, replaces
 // decode_attention.py::decode_attention_q8_pallas (the pl.pallas_call at
 // decode_attention.py:168): caches (B, S, KV, D) int8 with float32 scales
-// (B, KV), one per (batch row, kv head).  An int8 row is D bytes (16 to 128,
+// (B, KV), one per (batch row, kv head).  An int8 row is D bytes (16 to 256,
 // always a multiple of 16), so a key costs half its bfloat16 bytes and the
 // bound halves; the int8 tensor cores are no help while q is floating point.
 // With a bfloat16 q it is bf16 B7 over int8 rows: the same window body,
@@ -312,6 +313,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_cache,
     DECODE_CASE(80)
     DECODE_CASE(96)
     DECODE_CASE(128)
+    DECODE_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef DECODE_CASE
@@ -351,6 +353,7 @@ cudaError_t dispatch_bf16(int D, const void* q, const void* k_cache,
     DECODE_BF16_CASE(80)
     DECODE_BF16_CASE(96)
     DECODE_BF16_CASE(128)
+    DECODE_BF16_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef DECODE_BF16_CASE

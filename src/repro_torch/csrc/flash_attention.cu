@@ -40,7 +40,12 @@
 // tokens.  A 128-row block of eight warps (each K/V tile read once per
 // head at Sq = 127, the Llama-2-7B prefill's 256 blocks in one wave) read
 // slower at four of the five phase-3 shapes.  ~87 KB of dynamic shared
-// memory at D = 128: two blocks an SM.
+// memory at D = 128: two blocks an SM.  At D = 256 (gemma-7b, paligemma-3b)
+// the output accumulator alone is 128 f32 registers a thread, so Q stays
+// in shared memory and each k-step of Q K^T loads its one A fragment there
+// (the k-step loop outside the 16-key loop: one load a k-step a tile; D <=
+// 128 keeps Q in registers and the key loop outside); the tiles are
+// unchanged, 168,960 bytes of shared memory, one block an SM.
 //
 // float32 inputs (the configs' default dtype, run at smoke size; the
 // full-width serving paths run bf16) stay on the first kernel, unchanged:
@@ -48,7 +53,8 @@
 // Sq < 64) and walks tiles of 64 keys staged as f32 in shared memory
 // (rows padded to D + 4), scores with one key and a group of rows per
 // thread, one warp per row for the softmax, P V with four output columns
-// a thread; plain FMA on the CUDA cores, ~119 KB of shared memory at D = 128.
+// a thread; plain FMA on the CUDA cores, ~119 KB of shared memory at D = 128
+// and ~212 KB at D = 256 with 64-row tiles (under the 227 KB opt-in).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +67,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int KT = 64;       // keys per tile (the softmax warp reads two per lane)
+using mma_bf16::SMEM_OPT_IN;
 constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T> struct Vec4;   // four consecutive elements <-> float4 (f32)
@@ -249,7 +256,8 @@ template <typename T, int D, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int KV, int causal,
                    float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D, BQ>();
+  constexpr size_t smem = sizeof(float) * smem_floats<D, BQ>();
+  static_assert(smem <= SMEM_OPT_IN, "shared memory of the tile");
   static bool sized = false;   // the attribute is set once per instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -297,11 +305,12 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             int Sq, int Skv, int H, int KV, int causal,
                             float scale_log2) {
   using namespace mma_bf16;
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && D <= 256, "head dim");
   constexpr int DP = D + 8;        // padded shared row (bf16)
   constexpr int C8 = D / 8;        // 16-byte chunks of a row
   constexpr int KS = D / 16;       // k-steps of Q K^T
   constexpr int NB = D / 8;        // 8-column blocks of the output
+  constexpr bool Q_REGS = D <= 128;  // Q as A fragments for the whole walk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // TC_BQ x DP
   bf16* k_s = q_s + TC_BQ * DP;                    // 2 x TC_KT x DP
@@ -344,7 +353,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   if (n_tiles > 0) load_tile(0, 0);
   cp_async_commit();
 
-  uint32_t qf[KS][4];
+  uint32_t qf[Q_REGS ? KS : 1][4];
   float o[NB][4];
 #pragma unroll
   for (int n = 0; n < NB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -357,11 +366,13 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();            // tile t (and the q tile) have landed
     __syncthreads();
-    if (t == 0) {
+    if constexpr (Q_REGS) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * DP + kk * 16 +
-                            (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * DP + kk * 16 +
+                              (lane >> 4) * 8);
+      }
     }
     const int k0 = t * TC_KT;
     const bf16* ks = k_s + (t & 1) * TC_KT * DP;
@@ -370,16 +381,35 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (Q_REGS) {
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {          // 16 keys: two 8-key blocks
-      if (k0 + np * 16 > warp_kmax) continue; // above every row of the warp
+      for (int np = 0; np < 4; ++np) {          // 16 keys: two 8-key blocks
+        if (k0 + np * 16 > warp_kmax) continue; // above every row of the warp
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
+          mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+    } else {
+      // the k-step loop outside the keys: each Q fragment is loaded once a
+      // tile, and each score still sums its k-steps in order
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        uint32_t kb[4];
-        ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
-                        kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        ldsm_x4(qf[0], q_s + (warp * 16 + (lane & 15)) * DP + kk * 16 +
+                           (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (k0 + np * 16 > warp_kmax) continue;
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma16816(s[2 * np], qf[0], kb[0], kb[1]);
+          mma16816(s[2 * np + 1], qf[0], kb[2], kb[3]);
+        }
       }
     }
 
@@ -468,6 +498,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         int B, int Sq, int Skv, int H, int KV, int causal,
                         float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
+  static_assert(smem <= SMEM_OPT_IN, "shared memory of the tile");
   static bool sized = false;   // the attribute is set once per instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -515,6 +546,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 80: err = launch_dtype<80>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
     case 96: err = launch_dtype<96>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
     case 128: err = launch_dtype<128>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
+    case 256: err = launch_dtype<256>(dtype, q, k, v, out, B, Sq, Skv, H, KV, causal, scale, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -22,9 +22,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace mma_bf16 {
+
+// a block's dynamic shared memory past the 48 KB default, after opt-in
+// (sm_90: 227 KB)
+constexpr size_t SMEM_OPT_IN = 232448;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

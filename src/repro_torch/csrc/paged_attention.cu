@@ -162,6 +162,17 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const dim3 grid(B, KV, (R + rows_per_block - 1) / rows_per_block);
   const size_t smem = sizeof(float) * ((size_t)ps * (D + 1) + (size_t)ps * D +
                                        (size_t)rows_per_block * D);
+  // D = 256 passes the 48 KB default: the limit is raised once per
+  // instantiation and size
+  static size_t sized = 48 * 1024;
+  if (smem > sized) {
+    if (smem > mma_bf16::SMEM_OPT_IN) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    sized = smem;
+  }
   paged_attention_kernel<T, D><<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), page_table, lengths, static_cast<T*>(out),
@@ -197,6 +208,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
       case 32: return static_cast<int>(launch<float, 32>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
       case 64: return static_cast<int>(launch<float, 64>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
       case 128: return static_cast<int>(launch<float, 128>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
+      case 256: return static_cast<int>(launch<float, 256>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

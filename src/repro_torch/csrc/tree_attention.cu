@@ -176,6 +176,17 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   const dim3 grid(B, KV, (R + rows_per_block - 1) / rows_per_block);
   const size_t smem = sizeof(float) * ((size_t)KTILE * (D + 1) + (size_t)KTILE * D +
                                        (size_t)rows_per_block * D);
+  // D = 256 passes the 48 KB default: the limit is raised once per
+  // instantiation and size
+  static size_t sized = 48 * 1024;
+  if (smem > sized) {
+    if (smem > mma_bf16::SMEM_OPT_IN) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        tree_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    sized = smem;
+  }
   tree_attention_kernel<T, D><<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), lengths, win_mask, static_cast<T*>(out),
@@ -209,6 +220,7 @@ extern "C" int tree_attention_launch(const void* q, const void* k_cache,
       case 32: return static_cast<int>(launch<float, 32>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
       case 64: return static_cast<int>(launch<float, 64>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
       case 128: return static_cast<int>(launch<float, 128>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
+      case 256: return static_cast<int>(launch<float, 256>(q, k_cache, v_cache, ln, wm, out, B, n_t, H, KV, S, scale, st));
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

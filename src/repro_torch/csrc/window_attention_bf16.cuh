@@ -43,7 +43,22 @@
 // or holds only unmapped slots writes an empty partial (m = -inf, l = 0),
 // skipped by the merge; a row that sees no key returns 0.
 //
-// Int8 codes (B9).  A code row is D bytes (16 to 128, a multiple of 16), so
+// Head dim 256 (gemma-7b, paligemma-3b).  A warp's 16-row output
+// accumulator is then D / 8 = 32 fragments, 128 f32 registers a thread, and
+// Q as A fragments would add 64 more: so for D > 128 the Q tile stays in
+// shared memory (q_s) and each k-step of Q K^T loads its one fragment there
+// (the k-step loop is outside the 16-key loop, so one load serves all of a
+// warp's keys of the chunk); D <= 128 keeps Q in registers for the walk,
+// with the key loop outside.
+// A 16-row tile then needs 168-252 registers and no spill; a 64-row tile
+// (each warp scores all 64 keys of a chunk: 32 more registers) uses 255
+// and spills 4-16 bytes.  Walking its chunks in two key groups of 32, each
+// with its own softmax step, spilled 32-152 bytes instead, and the row
+// tile (16 or 64, from the host's split plans) cannot hand half of the
+// columns to a second warp.  The shared memory of a 64-row tile is
+// (64 + 4 * 64) * 264 * 2 = 168,960 bytes, under the 227 KB opt-in.
+//
+// Int8 codes (B9).  A code row is D bytes (16 to 256, a multiple of 16), so
 // it is staged by D / 16 16-byte cp.async copies into a two-stage ring of
 // codes beside the bf16 one; once chunk c has landed, one pass over shared
 // memory turns its codes into the bf16 rows of stage c & 1 (exact: |code|
@@ -70,6 +85,8 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 128;   // four warps
 constexpr int KC = 64;         // logical key positions of a staged chunk
 constexpr int T_MAX = 64;      // a tree window: one 64-bit word per row
+
+using mma_bf16::SMEM_OPT_IN;
 
 // q tile + two stages of K and V (+ two stages of their codes)
 template <int D, int WR, class Keys>
@@ -242,7 +259,7 @@ window_attention_kernel(const bf16* __restrict__ q,
                         int n_t, int H, int KV, int n_split, int split,
                         float scale_log2) {
   using namespace mma_bf16;
-  static_assert(D % 16 == 0 && D <= 128 && (WR == 1 || WR == 4), "shape");
+  static_assert(D % 16 == 0 && D <= 256 && (WR == 1 || WR == 4), "shape");
   using elem = typename Keys::elem;
   constexpr bool CODES = !std::is_same<elem, bf16>::value;   // int8 rows (B9)
   constexpr int ROWS = 16 * WR;    // query rows of the tile
@@ -254,6 +271,10 @@ window_attention_kernel(const bf16* __restrict__ q,
   constexpr int KS = D / 16;       // k-steps of Q K^T
   constexpr int NB = D / 8;        // 8-column blocks of the output
   constexpr int C16 = D / 16;      // 16-byte chunks of a code row
+  constexpr bool Q_REGS = D <= 128;  // Q as A fragments for the whole walk
+  // the warps' merged states fit over the K/V stages
+  static_assert((size_t)(4 / WR) * 16 * WR * (D + 2) * sizeof(float) <=
+                    4 * (size_t)KC * (D + 8) * sizeof(bf16), "merge space");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // ROWS x DP
   bf16* k_s = q_s + ROWS * DP;                     // 2 x KC x DP
@@ -349,7 +370,7 @@ window_attention_kernel(const bf16* __restrict__ q,
   }
   cp_async_commit();
 
-  uint32_t qf[KS][4];
+  uint32_t qf[Q_REGS ? KS : 1][4];
   float o[NB][4];
 #pragma unroll
   for (int n = 0; n < NB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -383,11 +404,13 @@ window_attention_kernel(const bf16* __restrict__ q,
       }
       __syncthreads();
     }
-    if (c == 0) {
+    if constexpr (Q_REGS) {
+      if (c == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], q_s + (wr * 16 + (lane & 15)) * DP + kk * 16 +
-                            (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(qf[kk], q_s + (wr * 16 + (lane & 15)) * DP + kk * 16 +
+                              (lane >> 4) * 8);
+      }
     }
     const int st = c & 1;
     const int kc0 = k_begin + c * KC;
@@ -397,15 +420,33 @@ window_attention_kernel(const bf16* __restrict__ q,
     float s[2 * NP][4];
 #pragma unroll
     for (int n = 0; n < 2 * NP; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (Q_REGS) {
 #pragma unroll
-    for (int np = 0; np < NP; ++np) {
+      for (int np = 0; np < NP; ++np) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
+          mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+    } else {
+      // the k-step loop outside the keys: each Q fragment is loaded once a
+      // chunk, and each score still sums its k-steps in order
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        uint32_t kb[4];
-        ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
-                        kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        ldsm_x4(qf[0], q_s + (wr * 16 + (lane & 15)) * DP + kk * 16 +
+                           (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DP +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma16816(s[2 * np], qf[0], kb[0], kb[1]);
+          mma16816(s[2 * np + 1], qf[0], kb[2], kb[3]);
+        }
       }
     }
 
@@ -575,6 +616,9 @@ cudaError_t launch(const void* q, const void* k_src, const void* v_src,
                    float* part, int* tickets, int B, int n_t, int H, int KV,
                    int n_split, int split, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, WR, Keys>();
+  // int8 codes at D = 256 fit a 16-row tile only (B9's G <= 16 gives no
+  // other): a 64-row tile would need 234,496 bytes
+  static_assert(smem <= SMEM_OPT_IN, "shared memory of the tile");
   static bool sized = false;   // the attribute is set once per instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -626,6 +670,7 @@ cudaError_t dispatch(int D, int row_tile, const void* q, const void* k_src,
     WINDOW_BF16_CASE(32)
     WINDOW_BF16_CASE(64)
     WINDOW_BF16_CASE(128)
+    WINDOW_BF16_CASE(256)
     default: return cudaErrorInvalidValue;
   }
 #undef WINDOW_BF16_CASE

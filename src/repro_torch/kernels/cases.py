@@ -368,6 +368,7 @@ TREE_SPLIT_CASES = [
     ("B=2 KV=4 T=13", (2, 2, 6, 4, 4, 64), [30, 200], 256),
     ("T=64 KV=1 G=4", (1, 7, 9, 4, 1, 128), [60], 192),
     ("ragged keys 96, G=4 on 64-row tiles", (2, 2, 6, 8, 2, 64), [0, 83], 96),
+    ("D=256 G=8 on 64-row tiles", (2, 2, 6, 8, 1, 256), [40, 150], 256),
 ]
 
 
@@ -687,11 +688,13 @@ def decode_case(B, H, KV, D, S, lengths, dtype, device, seed=0):
 
 # name, (B, H, KV, D, S), lengths: bf16 decode attention (B7) on grids of
 # fewer blocks than SMs, which split the key axis: a row of length 0 beside
-# a long one, G = 8 at D = 80, lengths past S at D = 96
+# a long one, G = 8 at D = 80, lengths past S at D = 96, paligemma-3b's
+# G = 8 at D = 256
 DECODE_SPLIT_CASES = [
     ("a length-0 row, D=128", (2, 32, 4, 128, 1024), [0, 900]),
     ("G=8 at D=80", (2, 8, 1, 80, 320), [300, 65]),
     ("lengths past S at D=96", (2, 8, 2, 96, 200), [250, 3]),
+    ("a length-0 row, G=8 at D=256", (2, 8, 1, 256, 1024), [0, 1000]),
 ]
 
 

@@ -33,7 +33,7 @@ from .ref import decode_attention_ref as decode_attention_plain
 __all__ = ["decode_attention_cuda", "decode_attention_plain", "launches",
            "split_plan"]
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_GROUP = 16      # query heads per kv head held in one block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

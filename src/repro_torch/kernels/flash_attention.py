@@ -24,7 +24,7 @@ from .ref import flash_attention_ref as flash_attention_plain
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches"]
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches made through ``flash_attention_cuda``

@@ -34,7 +34,7 @@ __all__ = ["paged_attention_cuda", "paged_attention_plain", "launches",
            "scratch_for", "sm_count", "split_plan", "split_ranges",
            "window_split_plan", "window_split_ranges"]
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_PAGE_SIZE = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

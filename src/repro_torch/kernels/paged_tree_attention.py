@@ -31,7 +31,7 @@ from .ref import paged_tree_attention_ref as paged_tree_attention_plain
 __all__ = ["paged_tree_attention_cuda", "paged_tree_attention_plain",
            "launches", "split_plan"]
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_PAGE_SIZE = 32
 MAX_T = 64          # one 64-bit ancestor word per window row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

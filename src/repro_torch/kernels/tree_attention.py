@@ -32,7 +32,7 @@ from .ref import tree_attention_ref as tree_attention_plain
 __all__ = ["tree_attention_cuda", "tree_attention_plain", "launches",
            "split_plan"]
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_T = 64          # one 64-bit ancestor word per window row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,12 +7,13 @@ transpose.  Both cache layouts are here: paged pools addressed through a
 page table and contiguous (B, S) slabs, each with sequential windows
 (prefill, draft steps, J=1 verification), token-tree windows (J > 1
 rounds) and the K/V window gather/scatter of the tree scatter-commit; plus
-cache-free attention for full-sequence scoring.  MoE is not ported yet
-(ROADMAP A12).
+cache-free attention for full-sequence scoring, and the mixture of experts
+(``MoEConfig``, ``init_moe``, ``moe_apply``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -462,3 +463,128 @@ def mlp_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "gelu":
         return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
     raise ValueError(f"unknown activation {activation}")
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch with capacity)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden
+    activation: str = "swiglu"
+    capacity_factor: float = 1.25
+    num_shared_experts: int = 0    # always-on shared experts (DeepSeek style)
+    shared_d_ff: int = 0
+    dense_residual: bool = False   # Arctic-style parallel dense MLP
+    dense_d_ff: int = 0
+
+
+def init_moe(gen, d_model: int, mcfg: MoEConfig, dtype=torch.float32) -> Params:
+    """Router (float32), the E experts' stacked (E, d, F) / (E, F, d)
+    weights, drawn in ``dtype`` on the generator's device (no float32 copy
+    of a full-width expert stack), and the shared / dense-residual MLPs."""
+    E, F = mcfg.num_experts, mcfg.d_ff
+
+    def experts(shape, scale):
+        w = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+        return w.mul_(scale)
+
+    p = {
+        "router": dense_init(gen, d_model, E, dtype=torch.float32),
+        "w_gate": experts((E, d_model, F), 1.0 / math.sqrt(d_model)),
+        "w_up": experts((E, d_model, F), 1.0 / math.sqrt(d_model)),
+        "w_down": experts((E, F, d_model), 1.0 / math.sqrt(F)),
+    }
+    if mcfg.num_shared_experts > 0:
+        p["shared"] = init_mlp(gen, d_model,
+                               mcfg.shared_d_ff or F * mcfg.num_shared_experts,
+                               mcfg.activation, dtype)
+    if mcfg.dense_residual:
+        p["dense"] = init_mlp(gen, d_model, mcfg.dense_d_ff or F,
+                              mcfg.activation, dtype)
+    return p
+
+
+def moe_capacity(tokens: int, mcfg: MoEConfig,
+                 capacity_factor: float | None = None) -> int:
+    """Slots per expert, from shapes on the host: ceil(T K / E * cf), the
+    JAX package's float expression (at cf = E / K, the no-drop factor, it
+    gives C = T)."""
+    cf = capacity_factor if capacity_factor is not None else mcfg.capacity_factor
+    return int(math.ceil(tokens * mcfg.top_k / mcfg.num_experts * cf))
+
+
+def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
+              capacity_factor: float | None = None):
+    """Sort-based top-k MoE dispatch with capacity (GShard style), as the
+    JAX package's ``moe_apply``.  x (B, S, d) -> (out (B, S, d), aux), aux
+    the load-balancing loss of Switch Transformers.
+
+    Everything stays on the device and makes no host sync: the capacity C
+    comes from shapes; the routed items are sorted by expert with a stable
+    ``argsort``, each item's rank in its expert's run is its index minus
+    ``searchsorted`` of its expert, and items past C go to the drop bin,
+    row E * C of the dispatch buffer.  The experts run as three batched
+    products over the (E, C, d) buffer.  The combine undoes the sort with
+    the inverse permutation (a gather, deterministic on the card) and sums
+    each token's K contributions in float32 over a (T, K, d) view, in a
+    fixed order, where the JAX package has ``segment_sum``."""
+    B, S, d = x.shape
+    E, K = mcfg.num_experts, mcfg.top_k
+    T = B * S
+    C = moe_capacity(T, mcfg, capacity_factor)
+    xt = x.reshape(T, d)
+    dev = x.device
+
+    logits = xt.float() @ params["router"]                       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)          # (T, K)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    # load-balancing aux loss (Switch eq. 4); the one-hot by comparison
+    experts_row = torch.arange(E, device=dev)
+    me = probs.mean(dim=0)
+    ce = (expert_idx[:, :1] == experts_row).float().mean(dim=0)
+    aux = E * (me * ce).sum()
+
+    flat_expert = expert_idx.reshape(-1)                          # (T*K,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order].contiguous()
+    first = torch.searchsorted(sorted_expert, sorted_expert, side="left")
+    pos_in_expert = torch.arange(T * K, device=dev) - first
+    keep_sorted = pos_in_expert < C
+    slot_sorted = torch.where(keep_sorted, sorted_expert * C + pos_in_expert,
+                              torch.full((), E * C, device=dev))
+    sorted_token = torch.div(order, K, rounding_mode="floor")
+
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+    # every dropped item lands in row E * C, which nothing reads
+    buf.index_copy_(0, slot_sorted, xt.index_select(0, sorted_token))
+    buf = buf[:-1].reshape(E, C, d)
+    if mcfg.activation in ("swiglu", "geglu"):
+        gate = torch.bmm(buf, params["w_gate"])
+        gate = (F.silu(gate) if mcfg.activation == "swiglu"
+                else F.gelu(gate, approximate="tanh"))
+        h = gate * torch.bmm(buf, params["w_up"])
+    else:
+        h = F.gelu(torch.bmm(buf, params["w_up"]), approximate="tanh")
+    out_buf = torch.cat([torch.bmm(h, params["w_down"]).reshape(E * C, d),
+                         torch.zeros((1, d), dtype=x.dtype, device=dev)])
+
+    # undo the sort: item i of the flat (T, K) order sits at inv[i]
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=dev))
+    slot = slot_sorted.index_select(0, inv)
+    keep = keep_sorted.index_select(0, inv)
+    weight = (gate_vals.reshape(-1) * keep).to(x.dtype)
+    contrib = out_buf.index_select(0, slot) * weight[:, None]
+    y = contrib.reshape(T, K, d).float().sum(dim=1).to(x.dtype)
+    y = y.reshape(B, S, d)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], x, mcfg.activation)
+    if "dense" in params:
+        y = y + mlp_apply(params["dense"], x, mcfg.activation)
+    return y, aux

@@ -690,10 +690,11 @@ class SpecEngine:
         """
         for role, cfg in (("target", self.target_cfg),
                           ("draft", self.draft_cfg)):
-            # dense decoders only: the ancestor-masked window needs
+            # DecoderLM families only: the ancestor-masked window needs
             # pointer-rollback attention caches and the forward_window
-            # (window_mask=, window_depth=) signature
-            if cfg.family != "dense":
+            # (window_mask=, window_depth=) signature; SSM/hybrid state
+            # cannot be pointer-rolled, enc-dec lacks the masked window
+            if cfg.family not in ("dense", "moe", "vlm"):
                 raise NotImplementedError(
                     f"tree verification needs an attention decoder "
                     f"({role} family {cfg.family!r}): divergent branches "
@@ -774,7 +775,11 @@ class SpecEngine:
             # root-to-node path): move the winning branch's rows from their
             # tree-window positions into the committed positions.  Sources
             # and destinations overlap (src >= dst), so the rows are
-            # gathered into a fresh tensor before the scatter.
+            # gathered into a fresh tensor before the scatter.  Every leaf
+            # of the target's own cache moves (a MoE stack's ``dense_k`` /
+            # ``dense_v`` too, which a dense draft does not have: the JAX
+            # package moves only the leaves the draft also holds), and
+            # every leaf of the draft's from its winning run's snapshot.
             with _span("engine.kv_commit", {"B": B, "L": L, "J": J}) as sp:
                 rows = torch.arange(B, device=self.device)
                 win_rows = res.winner.long()
@@ -786,11 +791,12 @@ class SpecEngine:
                 src_t = state.target_pos[:, None].long() + 1 + path_w.clamp(min=0)
                 dst_t = state.target_pos[:, None].long() + 1 + col
                 dst_d = state.draft_pos[:, None].long() + 1 + col
-                for leaf in forest.windows:
+                for leaf in strip_view(t_cache):
                     vals = gather_kv_window(t_cache[leaf], src_t, page_table=t_pt)
                     scatter_kv_window(t_cache[leaf], vals, dst_t, keep,
                                       page_table=t_pt)
-                    win = forest.windows[leaf][:, rows, win_rows]  # (Ln,B,L,KV,D)
+                for leaf, snap in forest.windows.items():
+                    win = snap[:, rows, win_rows]                  # (Ln,B,L,KV,D)
                     scatter_kv_window(d_cache[leaf], win, dst_d, keep,
                                       page_table=d_pt)
                 sp.attach(t_cache["k"])

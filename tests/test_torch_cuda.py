@@ -84,6 +84,9 @@ PAGED_SHAPES = [
     (8, 1, 32, 4, 64, 16, 512),      # tinyllama draft step
     (2, 127, 32, 4, 64, 16, 1),      # tinyllama prefill (offset 0)
     (2, 127, 32, 32, 128, 16, 1),    # llama2-7b prefill
+    (8, 9, 16, 16, 256, 16, 512),    # gemma-7b verify window (D = 256)
+    (8, 1, 8, 1, 256, 16, 400),      # paligemma-3b step (D = 256, MQA)
+    (2, 384, 8, 1, 256, 16, 1),      # paligemma-3b prefill: 64-row tiles
 ]
 
 
@@ -299,6 +302,8 @@ TREE_SHAPES = [
     (8, 2, 6, 32, 32, 128, 16, 512),   # llama2-7b tree window (T = 13)
     (8, 6, 8, 32, 32, 128, 16, 512),   # the scheme's ceiling (T = 49)
     (2, 7, 9, 4, 1, 32, 16, 100),      # T = 64, the kernel's limit
+    (8, 2, 6, 16, 16, 256, 16, 512),   # gemma-7b tree window (D = 256)
+    (4, 2, 6, 8, 1, 256, 16, 400),     # paligemma-3b: G = 8, 64-row tiles
 ]
 
 
@@ -518,6 +523,8 @@ CONTIGUOUS_TREE_SHAPES = [
     (8, 2, 6, 32, 32, 128, 1024, 512),  # llama2-7b tree window (T = 13)
     (8, 6, 8, 32, 32, 128, 1024, 512),  # the scheme's ceiling (T = 49)
     (2, 7, 9, 4, 1, 32, 128, 100),      # T = 64, the kernel's limit
+    (8, 2, 6, 16, 16, 256, 1024, 512),  # gemma-7b tree window (D = 256)
+    (4, 2, 6, 8, 1, 256, 512, 400),     # paligemma-3b: G = 8, 64-row tiles
 ]
 
 
@@ -745,6 +752,8 @@ DECODE_SHAPES = [
     (4, 32, 4, 64, 1024, [1, 1024, 1100, 700]),  # lengths 1, S, past S
     (3, 8, 1, 80, 100, [1, 100, 130]),          # G = 8 at D = 80, ragged tile
     (8, 32, 32, 96, 256, (1, 256)),             # D = 96, 256 blocks: no split
+    (8, 16, 16, 256, 1024, (128, 160)),         # gemma-7b step (D = 256)
+    (8, 8, 1, 256, 1024, (384, 416)),           # paligemma-3b step, G = 8
 ]
 
 
@@ -804,6 +813,7 @@ def test_decode_attention_bf16_splits_its_keys(cuda, case):
     (8, 32, 32, 128, 1024, (127, 190)),          # Llama-2-7B step: no split
     (2, 32, 4, 128, 1024, [5, 900]),             # 16 splits at D = 128
     (3, 4, 2, 16, 96, [1, 96, 40]),              # smoke widths
+    (2, 8, 1, 256, 1024, [1000, 7]),             # D = 256, G = 8, splits
 ])
 def test_decode_attention_equals_tree_attention_at_one_row(cuda, shape):
     """bf16 B7 at lengths l equals B6 with a one-row window, mask [[1]], at
@@ -832,6 +842,10 @@ FLASH_SHAPES = [
     (8, 127, 127, 32, 32, 80, True),      # zamba2 shared-attention prefill
     (2, 70, 200, 8, 2, 64, True),         # Sq < Skv: bottom-right diagonal
     (2, 100, 100, 8, 2, 80, False),       # non-causal
+    (2, 128, 128, 16, 16, 256, True),     # gemma-7b prefill (D = 256)
+    (2, 384, 384, 8, 1, 256, True),       # paligemma-3b prefill, MQA
+    (2, 1500, 1500, 20, 20, 64, False),   # whisper-large-v3 encoder
+    (2, 1, 1500, 20, 20, 64, False),      # whisper cross-attention step
 ]
 
 
@@ -867,7 +881,7 @@ def test_b7_b8_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="see no key"):
         fa.flash_attention_cuda(q, k, v, causal=True)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_cuda(*cases.flash_case(1, 4, 4, 2, 1, 256,
+        fa.flash_attention_cuda(*cases.flash_case(1, 4, 4, 2, 1, 48,
                                                   torch.float32, cuda))
     q, kc, vc, ln = cases.decode_case(1, 34, 2, 16, 8, (1, 8), torch.float32,
                                       cuda)
@@ -888,6 +902,8 @@ Q8_SHAPES = [
     (4, 8, 4, 64, 512, [256] * 4),              # the JAX kernel bench's shape
     (4, 32, 4, 64, 1024, [1, 1024, 1100, 700]),  # lengths 1, S, past S
     (3, 8, 1, 80, 100, [1, 100, 130]),          # G = 8 at D = 80, ragged tile
+    (8, 16, 16, 256, 1024, (128, 160)),         # gemma-7b step (D = 256)
+    (8, 8, 1, 256, 1024, [1, 1024, 1100, 5, 400, 401, 402, 403]),  # MQA
 ]
 
 
@@ -913,6 +929,8 @@ def test_decode_attention_q8_kernel_matches_plain(cuda, shape, dtype):
     (2, 8, 1, 80, 320, [300, 65]),                 # D = 80, split
     (8, 32, 32, 128, 1024, (127, 190)),            # Llama-2-7B step: no split
     (2, 32, 4, 128, 1024, [5, 900]),               # D = 128, 16 splits
+    (8, 16, 16, 256, 1024, (128, 160)),            # gemma-7b step (D = 256)
+    (2, 8, 1, 256, 1024, [1000, 0]),               # D = 256, G = 8, split
 ])
 def test_decode_attention_q8_bf16_is_b7_on_the_codes(cuda, shape):
     """bf16 B9 runs B7's window body over int8 rows with B7's split: at

@@ -215,6 +215,8 @@ def _split_emulated(q, k_pool, v_pool, page_table, lengths, n_sm):
     (4, 9, 4, 4, 16, 400, 64, 132, False),  # verify window
     (3, 5, 4, 2, 32, 3, 32, 132, True),     # every horizon in the 1st split
     (3, 1, 4, 2, 16, 40, 12, 1, True),      # one SM: one split
+    (8, 1, 8, 1, 256, 300, 64, 132, False),   # paligemma step, D = 256
+    (4, 9, 16, 16, 256, 200, 32, 132, False),  # gemma verify, D = 256
 ])
 def test_paged_attention_split_merge_matches_ref(B, T, H, KV, D, ctx, width,
                                                  n_sm, in_first):
@@ -326,6 +328,8 @@ TREE_SPLIT_CASES = [
     ("G > 1, 64-row tiles", (2, 2, 6, 8, 2, 32, 192, 8), [100, 37], 132),
     ("T = 64 across a split", (1, 7, 9, 4, 1, 32, 128, 16), [60], 132),
     ("one SM: one split", (2, 2, 3, 4, 2, 16, 128, 16), [90, 3], 1),
+    ("D = 256, G = 8 on 64-row tiles", (2, 2, 6, 8, 1, 256, 256, 16),
+     [200, 40], 132),
 ]
 
 
@@ -413,6 +417,8 @@ DECODE_SPLIT_CASES = [
     ("a split row of length 0", (3, 8, 2, 16, 256), [0, 200, 37]),
     ("lengths past S", (2, 8, 4, 32, 192), [250, 192]),
     ("G = 8 at D = 80", (2, 8, 1, 80, 320), [300, 65]),
+    ("G = 8 at D = 256", (2, 8, 1, 256, 512), [500, 3]),
+    ("gemma-7b heads at D = 256", (2, 16, 16, 256, 300), [300, 17]),
 ]
 
 

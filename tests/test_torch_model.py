@@ -22,9 +22,10 @@ from repro.configs.base import ModelConfig as JModelConfig
 from repro.models import build_model as jbuild_model
 from repro.models import layers as jl
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs import get_config
-from repro_torch.models import build_model
+from repro_torch.configs import get_config, list_architectures
+from repro_torch.models import build_model, has_prefix_embeds
 from repro_torch.models import layers as tl
+from repro_torch.models.model_zoo import prefix_len
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 PS, N_SLOTS = 16, 6
@@ -110,17 +111,62 @@ def test_prefill_and_windows_match_jax(role):
                                    np.asarray(jcache[leaf]), **TOL)
 
 
-def test_params_from_jax_keeps_layouts():
-    cfg, jm, jparams, tm, tparams = _pair("target")
-    assert len(tparams["blocks"]) == cfg.num_layers
-    for i, blk in enumerate(tparams["blocks"]):
-        for group, leaves in blk.items():
-            for name, t in leaves.items():
-                want = np.asarray(jparams["blocks"][group][name])[i]
+def _leaves(tree, path=()):
+    """(path, leaf) of every array of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+# the engine tests' dense target, a MoE stack with a leading dense block and
+# shared experts, a MoE stack with a dense residual, a VLM with tied
+# embeddings, and the encoder-decoder
+BRIDGE_ARCHS = ["target", "moonshot-v1-16b-a3b", "arctic-480b",
+                "paligemma-3b", "whisper-large-v3"]
+
+
+@pytest.mark.parametrize("arch", BRIDGE_ARCHS)
+def test_params_from_jax_keeps_layouts(arch):
+    """Every stacked layer axis (``blocks``, ``dense_blocks``,
+    ``enc_blocks``, ``dec_blocks``) unrolls into per-layer dicts whose
+    leaves, MoE expert stacks and nested ``shared`` / ``dense`` MLPs
+    included, equal the reference's layer slice exactly, in its (in, out)
+    layout; the other entries carry over as they are."""
+    if arch == "target":
+        cfg, jm, jparams, tm, tparams = _pair("target")
+    else:
+        cfg = get_config(arch).smoke()
+        jparams = jbuild_model(_jcfg(cfg)).init(jax.random.PRNGKey(3))
+        tparams = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                                  device="cpu")
+    stacks = [k for k in ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
+              if k in jparams]
+    assert set(tparams) == set(jparams)
+    assert ("dense_blocks" in stacks) == (cfg.first_k_dense > 0)
+    assert ("unembed" in tparams) == (not cfg.tie_embeddings)
+    for stack in stacks:
+        n = next(_leaves(jparams[stack]))[1].shape[0]
+        assert len(tparams[stack]) == n
+        for i, blk in enumerate(tparams[stack]):
+            want_leaves = dict(_leaves(jparams[stack]))
+            got_leaves = dict(_leaves(blk))
+            assert set(got_leaves) == set(want_leaves)
+            for path, t in got_leaves.items():
+                want = np.asarray(want_leaves[path])[i]
                 assert tuple(t.shape) == want.shape    # (in, out): no transpose
                 np.testing.assert_array_equal(t.numpy(), want)
-    np.testing.assert_array_equal(tparams["embed"].numpy(),
-                                  np.asarray(jparams["embed"]))
+    for key in set(jparams) - set(stacks):
+        for path, t in _leaves(tparams[key]):
+            np.testing.assert_array_equal(
+                t.numpy(), np.asarray(dict(_leaves(jparams[key]))[path]))
+    if cfg.num_experts:
+        moe = tparams["blocks"][0]["moe"]
+        E, F = cfg.num_experts, cfg.moe_d_ff
+        assert tuple(moe["w_gate"].shape) == (E, cfg.d_model, F)
+        assert ("shared" in moe) == bool(cfg.num_shared_experts)
+        assert ("dense" in moe) == cfg.dense_residual
 
 
 def test_init_draws_the_reference_distributions():
@@ -312,8 +358,34 @@ def test_tree_forward_window_matches_jax(J):
                           window_depth=torch.from_numpy(depth))
 
 
-def test_unported_paths_name_their_roadmap_item():
-    for arch, item in (("whisper-large-v3", "A14"), ("paligemma-3b", "A14"),
-                       ("moonshot-v1-16b-a3b", "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(get_config(arch).smoke(), device="cpu")
+@pytest.mark.parametrize("arch", list_architectures())
+def test_unported_paths_name_their_roadmap_item(arch):
+    """Every registered architecture's smoke config builds on the CPU and
+    runs ``apply`` (with prefix embeddings where ``has_prefix_embeds``
+    says so) against the reference's ``apply`` on the same parameters:
+    no family is refused any more.  Logits and the aux loss within
+    ``_tol(float32)``; MoE blocks dispatch at the configured capacity."""
+    cfg = get_config(arch).smoke()
+    jm = jbuild_model(_jcfg(cfg))
+    jparams = jm.init(jax.random.PRNGKey(11))
+    tm = build_model(cfg, device="cpu")
+    tparams = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                              device="cpu")
+    rng = np.random.default_rng(12)
+    B, S = 2, 6
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    prefix = None
+    assert has_prefix_embeds(cfg) == (cfg.family in ("vlm", "audio"))
+    if has_prefix_embeds(cfg):
+        prefix = rng.standard_normal(
+            (B, prefix_len(cfg), cfg.d_model)).astype(np.float32)
+    jl_, jaux = jm.apply(jparams, jnp.asarray(tokens),
+                         prefix_embeds=None if prefix is None
+                         else jnp.asarray(prefix))
+    tl_, taux = tm.apply(tparams, torch.from_numpy(tokens),
+                         prefix_embeds=None if prefix is None
+                         else torch.from_numpy(prefix))
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
+    assert tl_.shape == (B, S + extra, cfg.vocab_size)
+    np.testing.assert_allclose(tl_.numpy(), np.asarray(jl_), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)

@@ -11,6 +11,17 @@ outputs agree within 2e-5 (``_tol(float32)`` of ``tests/test_kernels.py``).
 The reference engines run in ONE subprocess (this file as a script), as in
 ``tests/test_torch_engine.py``: compiling several JAX engines late in a long
 pytest process can segfault the XLA CPU compiler (ROADMAP §C).
+
+A MoE target (``moonshot-v1-16b-a3b``'s smoke config: one leading dense
+block with ``dense_k`` / ``dense_v`` cache leaves, then a MoE block with
+shared experts) beside the dense smoke draft runs 3 J=1 rounds and 2 tree
+rounds (J = 2, L <= 4) on each layout in the same subprocess, in the
+reference's ``tree_commit="repair"``: the port commits the same tokens,
+counts and ``pool_stats`` in both of its commit modes.  The reference's
+scatter commit moves only the K/V leaves the draft also has, so it leaves
+a MoE target's dense-block K/V at the tree slots (ROADMAP §C); the port's
+scatter moves every leaf of the target's cache and must leave the K/V of
+its own repair commit, leaf by leaf.
 """
 
 import dataclasses
@@ -60,6 +71,24 @@ RETIRE_ROUND = 2
 ROUNDS_OF = {"scatter": len(TREE_ROUNDS), "repair": RETIRE_ROUND}
 CELL_ROUNDS = 3
 COMMITS = ("scatter", "repair")
+# the MoE target's rounds: (J, lengths, freeze)
+MOE_ROUNDS = [
+    (1, [4, 2, 3], None),
+    (1, [1, 4, 4], [False, True, False]),
+    (1, [3, 4, 2], None),
+    (2, [4, 3, 4], None),
+    (2, [2, 4, 3], None),
+]
+LAYOUTS = ("paged", "contiguous")
+
+
+def _moe_cfgs(cfg_mod):
+    """A MoE target beside the dense smoke draft (one vocabulary)."""
+    return cfg_mod.get_config("moonshot-v1-16b-a3b").smoke(), _cfgs(cfg_mod)[1]
+
+
+def _moe_draws(r, J, L, V):
+    return jax_draws(5000 + r, B, L, VHAT, V, J=None if J == 1 else J)
 MULTIDRAFT = {"J_min": 2, "J_max": 3}
 
 
@@ -124,6 +153,35 @@ def _reference(out_path):
                 "committed": _committed(st),
             })
         out[commit] = rounds
+
+    # -- a MoE target on both layouts, repair commits --
+    mt, md = _moe_cfgs(jcfgs)
+    moe = {}
+    for layout in LAYOUTS:
+        eng = SpecEngine(mt, md, max_len=MAX_LEN, cache_kind=layout,
+                         num_pages=NUM_PAGES if layout == "paged" else None,
+                         tree_commit="repair", compile_mode="eager")
+        eng.init_params(jax.random.PRNGKey(4))
+        moe["t_params"] = jax.tree.map(np.asarray, eng.t_params)
+        moe["d_params"] = jax.tree.map(np.asarray, eng.d_params)
+        st = eng.start(jnp.asarray(start))
+        rounds = []
+        for r, (J, lengths, freeze) in enumerate(MOE_ROUNDS):
+            h0 = eng.host_syncs
+            st, res, _ = eng.spin_round(st, np.asarray(lengths),
+                                        jax.random.PRNGKey(5000 + r),
+                                        vhat=VHAT, freeze=freeze,
+                                        draft_width=J)
+            rounds.append({
+                "accept_counts": np.asarray(res.accept_counts),
+                "output_tokens": np.asarray(res.output_tokens),
+                "last_accepted": eng.last_accepted.copy(),
+                "host_syncs": eng.host_syncs - h0,
+                "pool_stats": eng.pool_stats(),
+                "committed": _committed(st),
+            })
+        moe[layout] = rounds
+    out["moe"] = moe
 
     # -- a multidraft cell session through the reference EngineBackend --
     eng = engine("scatter")
@@ -439,6 +497,90 @@ def test_scatter_commit_equals_repair_with_the_same_caches(ref):
             got = [gather_kv_window(getattr(e, eng_attr)[leaf], pos,
                                     getattr(e, pages_attr).device_table(range(B)))
                    for e in (a, b)]
+            np.testing.assert_allclose(got[0].numpy(), got[1].numpy(), **TOL)
+
+
+def _moe_engine(ref, layout, commit):
+    from repro_torch.serving import SpecEngine
+
+    tcfg, dcfg = _moe_cfgs(tcfgs)
+    eng = SpecEngine(tcfg, dcfg, max_len=MAX_LEN, cache_kind=layout,
+                     num_pages=NUM_PAGES if layout == "paged" else None,
+                     tree_commit=commit, device="cpu")
+    eng.t_params = params_from_jax(tcfg, ref["moe"]["t_params"], device="cpu")
+    eng.d_params = params_from_jax(dcfg, ref["moe"]["d_params"], device="cpu")
+    return eng
+
+
+def _moe_rounds(ref, layout, commit, check=True):
+    """The MoE rounds on a port engine, each held against the reference's
+    repair commit when ``check``; returns (engine, state)."""
+    eng = _moe_engine(ref, layout, commit)
+    start, _ = _prompts()
+    st = eng.start(torch.from_numpy(start))
+    V = eng.target_cfg.vocab_size
+    for r, ((J, lengths, freeze), want) in enumerate(
+            zip(MOE_ROUNDS, ref["moe"][layout])):
+        h0 = eng.host_syncs
+        st, res, _ = eng.spin_round(st, np.asarray(lengths),
+                                    _moe_draws(r, J, max(lengths), V),
+                                    vhat=VHAT, freeze=freeze, draft_width=J)
+        if not check:
+            continue
+        for name in ("accept_counts", "output_tokens"):
+            np.testing.assert_array_equal(getattr(res, name).numpy(),
+                                          want[name], f"round {r} {name}")
+        np.testing.assert_array_equal(eng.last_accepted, want["last_accepted"])
+        syncs = 1 if J == 1 else (3 if commit == "repair" else 2)
+        assert eng.host_syncs - h0 == syncs
+        if commit == "repair":
+            assert want["host_syncs"] == syncs
+        assert eng.pool_stats() == want["pool_stats"]
+        assert _committed(st) == want["committed"]
+    return eng, st
+
+
+@pytest.mark.parametrize("commit", COMMITS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_moe_engine_rounds_match_reference(ref, layout, commit):
+    """3 J=1 and 2 tree rounds of the MoE target under the reference's
+    draws: counts, tokens, committed lists and ``pool_stats`` (the paged
+    pools hold the ``dense_k`` / ``dense_v`` leaves) exact against the
+    reference's repair commit, in both of the port's commit modes."""
+    eng, st = _moe_rounds(ref, layout, commit)
+    assert sorted(k for k in eng.t_cache if k != "pages") == \
+        ["dense_k", "dense_v", "k", "v"]
+    if layout == "paged":
+        eng.t_pages.check_invariants()
+        eng.d_pages.check_invariants()
+    assert any(int(w["accept_counts"].max()) > 0
+               for w in ref["moe"][layout][3:]), "no tree round accepted a draft"
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_moe_scatter_commit_equals_repair_with_the_same_caches(ref, layout):
+    """For a MoE target with a leading dense block the port's scatter
+    commit leaves the K/V of its repair commit at every committed position
+    of every row, in every leaf of the target's cache (``dense_k`` /
+    ``dense_v`` too, which the reference's scatter leaves at the tree
+    slots) and of the draft's, within ``_tol``."""
+    from repro_torch.models.layers import gather_kv_window
+
+    a, sa = _moe_rounds(ref, layout, "scatter", check=False)
+    b, sb = _moe_rounds(ref, layout, "repair", check=False)
+    assert _committed(sa) == _committed(sb)
+    n = min(len(c) for c in sa.committed) - 1
+    pos = torch.arange(n)[None].expand(B, n)
+    for cache_attr, pages_attr in (("t_cache", "t_pages"),
+                                   ("d_cache", "d_pages")):
+        leaves = [k for k in getattr(a, cache_attr) if k != "pages"]
+        assert ("dense_k" in leaves) == (cache_attr == "t_cache")
+        for leaf in leaves:
+            got = [gather_kv_window(
+                getattr(e, cache_attr)[leaf], pos,
+                None if layout == "contiguous"
+                else getattr(e, pages_attr).device_table(range(B)))
+                for e in (a, b)]
             np.testing.assert_allclose(got[0].numpy(), got[1].numpy(), **TOL)
 
 
