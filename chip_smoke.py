@@ -167,7 +167,24 @@ package.  Phases (none catches a failure):
      two layouts' logits compared
  17. whisper-large-v3 (``encdec_path``): 8 x 1500 frames, 8 x 64 decoder
      tokens, 32 greedy steps (B7 and B8 32 each a step)
- 18. summary lines: each profiled path's device busy, wall and idle share
+ 18. the training path (``training_reference_check``, ``training_path``):
+     four smoke families (tinyllama, moonshot MoE, paligemma with prefix
+     embeds, whisper with frames) train 3 steps on the card as on the CPU
+     from the same port init (losses and the first step's gradients
+     within ``SMOKE_TRAIN_TOL``, no kernel launched); a Mamba-2 smoke step
+     on the card must raise at ``ops.ssd_scan`` (no kernel has a
+     backward); then TinyLlama-1.1B in float32 at full width and depth,
+     the train launcher's defaults (seq 128, batch 8, microbatches 2), 20
+     steps: ms a step, tokens/s, peak memory, the bound, every counter 0;
+     3 profiled steps; one step repeated from the same state (the same
+     bits or the differing leaves named); a restart at 1 layer of the
+     same widths, begun before phase 14 so that its checkpoint write
+     overlaps phases 14-17: 20 steps with ``CheckpointManager.save_async``
+     at step 10 (zlib where zstandard is missing), and here a fresh
+     template restored and run to step 20 against the uninterrupted run,
+     bit for bit or within 2 lr a resumed step; checkpoint bytes,
+     snapshot, write and read seconds
+ 19. summary lines: each profiled path's device busy, wall and idle share
      per round, step or batch; per path, the launches of B3, B6, B1, B7,
      B2, B4 and B5 per round, step or batch (counters) beside their
      profiled calls and device ms; the gateway's TTFT and tokens/s; then
@@ -323,6 +340,10 @@ CONTINUOUS_CHECKED = 24     # checked batches before the profile
 PROFILES = {}   # label -> device busy, wall and idle share per round or step
 START_PROFILES = {}   # (label, op) -> device ms and calls in a profiled start()
 GATEWAY = {}   # the gateway session's loadgen numbers
+TRAINING = {}   # the full-width training run's numbers
+SMOKE_TRAIN_TOL = dict(loss_rtol=1e-5, grad_rtol=1e-4, grad_atol_scale=1e-5)
+TRAIN_STEPS = 20            # the full-width run: launcher defaults
+RESTART_AT = 10
 
 
 def log(*args):
@@ -2380,6 +2401,310 @@ def encdec_path(torch, ops, *, K=8, M=64, steps=32, max_len=128):
     return counts, records, at_start
 
 
+def _leaf_items(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_items(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def _differing_leaves(torch, a, b):
+    """(key, max |a - b|) of every leaf that is not bit for bit equal."""
+    out = []
+    for (k, x), (_, y) in zip(_leaf_items(a), _leaf_items(b)):
+        if not torch.equal(x, y):
+            out.append((k, float((x.float() - y.float()).abs().max())))
+    return out
+
+
+def training_reference_check(torch, np, ops):
+    """Phase 18a: the smoke models of four families train on the card as on
+    the CPU: the same port init (drawn on the CPU, copied over), three
+    steps of ``make_train_step`` at the launcher's microbatches (2) on the
+    same batches; the first step's gradients within ``SMOKE_TRAIN_TOL``
+    (grad_rtol, and an atol of grad_atol_scale x the leaf's largest entry:
+    float32 products summed in other orders), every step's loss within
+    loss_rtol; no kernel launches (``apply`` runs plain attention).  Then a
+    Mamba-2 smoke step on the card must raise at ``ops.ssd_scan``: the
+    kernel has no backward, and its op refuses an input that requires
+    grad."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, has_prefix_embeds
+    from repro_torch.models.model_zoo import prefix_len
+    from repro_torch.training import (OptimizerConfig, init_optimizer,
+                                      make_train_step)
+    from repro_torch.training.train_loop import value_and_grad
+
+    tol = SMOKE_TRAIN_TOL
+    opt_cfg = OptimizerConfig(learning_rate=3e-3, warmup_steps=1,
+                              decay_steps=20)
+    rng = np.random.default_rng(5)
+    for arch in ("tinyllama-1.1b", "moonshot-v1-16b-a3b", "paligemma-3b",
+                 "whisper-large-v3"):
+        cfg = get_config(arch).smoke()
+        batches = []
+        for _ in range(3):
+            b = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (8, 16)).astype(np.int32))}
+            if has_prefix_embeds(cfg):
+                b["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+                    (8, prefix_len(cfg), cfg.d_model)).astype(np.float32))
+            batches.append(b)
+        init = build_model(cfg, device="cpu").init(0)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, device=dev)
+            params = _to(torch, init, dev)
+            on = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+            ops.reset_counts()
+            _, _, grads = value_and_grad(model, params, on[0]["tokens"],
+                                         on[0].get("prefix_embeds"))
+            step = make_train_step(model, opt_cfg, microbatches=2,
+                                   has_prefix=has_prefix_embeds(cfg))
+            state, losses = init_optimizer(opt_cfg, params), []
+            for b in on:
+                params, state, met = step(params, state, b)
+                losses.append(float(met["loss"]))
+            counts = ops.counts()
+            assert all(v == {"kernel": 0, "plain": 0}
+                       for v in counts.values()), counts
+            runs[dev] = (losses, _to(torch, grads, "cpu"))
+        (lc, gc_), (lg, gg) = runs["cpu"], runs["cuda"]
+        worst = 0.0
+        for (k, a), (_, b) in zip(_leaf_items(gc_), _leaf_items(gg)):
+            scale = float(a.abs().max())
+            excess = float(((b - a).abs() - tol["grad_rtol"] * a.abs()).max())
+            worst = max(worst, excess / max(scale, 1e-30))
+            assert excess <= tol["grad_atol_scale"] * scale, (arch, k, excess)
+        rel = max(abs(x - y) / abs(x) for x, y in zip(lc, lg))
+        log(f"training reference check ({cfg.name}, 3 steps, microbatches 2, "
+            f"batch 8 x 16): losses card {[f'{x:.6f}' for x in lg]}, CPU "
+            f"{[f'{x:.6f}' for x in lc]}, max rel {rel:.3e} (band "
+            f"{tol['loss_rtol']}); step-0 grads: worst excess over rtol "
+            f"{tol['grad_rtol']} {worst:.3e} of the leaf's max (band "
+            f"{tol['grad_atol_scale']}); no kernel launched")
+        assert rel <= tol["loss_rtol"], (arch, lc, lg)
+    cfg = get_config("mamba2-130m").smoke()
+    model = build_model(cfg, device="cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 16))
+                              .astype(np.int32)).cuda()
+    ops.reset_counts()
+    try:
+        value_and_grad(model, model.init(0), tokens)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a Mamba-2 train step on the card went through "
+                             "ops.ssd_scan without refusing")
+    assert "ops.ssd_scan" in refused and "no backward" in refused, refused
+    assert ops.counts()["ssd_scan"]["kernel"] == 0
+    log(f"training reference check (mamba2-130m smoke, on the card): the "
+        f"step raises at the SSD scan, none launched: {refused[:90]}...")
+
+
+def _train_setup(torch, cfg, seq, batch, microbatches, n_batches):
+    """The launcher's optimizer, data and step for ``cfg`` on the card."""
+    from repro_torch.models import build_model
+    from repro_torch.training import (DataConfig, OptimizerConfig,
+                                      SyntheticLMDataset, init_optimizer,
+                                      make_train_step)
+
+    opt_cfg = OptimizerConfig(warmup_steps=10, decay_steps=TRAIN_STEPS)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch))
+    batches = [torch.from_numpy(data.batch(s)["tokens"]).cuda()
+               for s in range(n_batches)]
+    model = build_model(cfg)
+    params = model.init(0)
+    step_fn = make_train_step(model, opt_cfg, microbatches=microbatches)
+    return (model, params, init_optimizer(opt_cfg, params), step_fn, batches,
+            opt_cfg)
+
+
+def training_path(torch, np, ops, *, arch="tinyllama-1.1b", seq=128, batch=8,
+                  microbatches=2):
+    """Phase 18b: ``arch`` at full width and depth in float32 (its config),
+    the launcher's defaults (seq 128, batch 8, microbatches 2, 10 warmup
+    steps decaying over 20): 20 train steps, timed per step (host clock,
+    each step ending in a read of its loss), peak memory, counters (all 0:
+    no kernel on this path, as in the JAX package), then 3 profiled steps;
+    a step repeated from the same state must give the same bits, or the
+    differing leaves are named."""
+    from repro_torch.configs import get_config
+
+    label = "training path"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model, params, state, step_fn, batches, _ = _train_setup(
+        torch, cfg, seq, batch, microbatches, TRAIN_STEPS + 4)
+    n_params = model.num_params(params)
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.name} float32, {cfg.num_layers} layers, "
+        f"{n_params} params in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, ms = [], []
+    for s in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, state, met = step_fn(params, state, {"tokens": batches[s]})
+        losses.append(float(met["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t))
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(v == {"kernel": 0, "plain": 0} for v in counts.values()), counts
+    assert np.isfinite(losses).all(), losses
+    steady = sum(ms[1:]) / (len(ms) - 1)
+    tokens = batch * seq
+    # bound: the products (6 flops a matmul weight a token, attention's
+    # causal half 6 B H S^2 D a layer) at 67 TFLOP/s f32, then AdamW's
+    # bytes (p, g, m, v read, p, m, v written) at 3.35 TB/s: the optimizer
+    # needs every gradient, so the two do not overlap
+    matmul_w = n_params - cfg.vocab_size * cfg.d_model     # the lookup
+    flops = (6 * matmul_w * tokens + 6 * cfg.num_layers * batch
+             * cfg.num_heads * seq * seq * cfg.head_dim)
+    bound_ms = 1e3 * (flops / 67e12 + 7 * 4 * n_params / 3.35e12)
+    log(f"{label}: {TRAIN_STEPS} steps (seq {seq}, batch {batch}, "
+        f"microbatches {microbatches}): step 0 {ms[0]:.2f} ms, steps 1-"
+        f"{TRAIN_STEPS - 1} mean {steady:.2f} ms/step, "
+        f"{tokens / steady * 1e3:.2f} tokens/s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; peak memory {peak:.2f} GiB; bound {bound_ms:.2f} "
+        f"ms/step ({flops / 1e12:.3f} TFLOP at 67 TFLOP/s + AdamW "
+        f"{7 * 4 * n_params / 1e9:.2f} GB at 3.35 TB/s), the step at "
+        f"{bound_ms / steady:.3f} of it; counters all 0: "
+        f"{ {k: v['kernel'] for k, v in counts.items()} }")
+    TRAINING.update(step_ms=steady, first_step_ms=ms[0], peak_gib=peak,
+                    tokens_per_s=tokens / steady * 1e3, bound_ms=bound_ms,
+                    losses=losses)
+    it = iter(range(TRAIN_STEPS, TRAIN_STEPS + 3))
+    current = [params, state]
+
+    def one_step():
+        current[0], current[1], met = step_fn(current[0], current[1],
+                                              {"tokens": batches[next(it)]})
+        return met
+
+    profile_rounds(torch, one_step, 3, label, unit="step")
+    params, state = current
+    a = step_fn(params, state, {"tokens": batches[-1]})
+    b = step_fn(params, state, {"tokens": batches[-1]})
+    diff = _differing_leaves(torch, (a[0], a[1]), (b[0], b[1]))
+    log(f"{label}: one step repeated from the same state at full depth: the "
+        f"same bits: {not diff}" + (f"; differing leaves {diff[:6]}"
+                                    if diff else ""))
+    TRAINING["repeat_bit_exact"] = not diff
+
+
+def training_restart_begin(torch, np, ops, *, arch="tinyllama-1.1b",
+                           layers=1, seq=128, batch=8, microbatches=2):
+    """Phase 18c, begun before phase 14: ``arch``'s widths at ``layers``
+    layers (the 22-layer float32 state is 13.2 GB, which zlib, the codec
+    where zstandard is missing, writes at ~20 MB/s on one core), the
+    launcher's defaults, 20 steps with a ``CheckpointManager.save_async``
+    at step 10, as the launcher saves.  The writer compresses in the
+    background while phases 14-17 run (its zlib and hashing release the
+    interpreter lock; it touches no CUDA tensor); ``training_restart_end``
+    restores the file.  No kernel launches in the 20 steps."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+
+    class TimedManager(CheckpointManager):
+        """Records how long its last ``save`` took (the background
+        writer's wall time, for ``save_async``)."""
+        seconds = None
+
+        def save(self, step, tree, metadata=None):
+            t = time.perf_counter()
+            super().save(step, tree, metadata)
+            self.seconds = time.perf_counter() - t
+
+    cfg = get_config(arch).replace(num_layers=layers)
+    model, params, state, step_fn, batches, opt_cfg = _train_setup(
+        torch, cfg, seq, batch, microbatches, TRAIN_STEPS)
+    tmp = tempfile.TemporaryDirectory()
+    mgr = TimedManager(tmp.name)
+    ops.reset_counts()
+    losses = []
+    for s in range(TRAIN_STEPS):
+        if s == RESTART_AT:
+            t = time.perf_counter()
+            mgr.save_async(s, {"params": params, "opt": state})
+            snap_s = time.perf_counter() - t
+            t_write = time.perf_counter()
+        params, state, met = step_fn(params, state, {"tokens": batches[s]})
+        losses.append(float(met["loss"]))
+    counts = ops.counts()
+    assert all(v == {"kernel": 0, "plain": 0} for v in counts.values()), counts
+    log(f"training restart: {layers}-layer {cfg.name}, {TRAIN_STEPS} steps, "
+        f"save_async at step {RESTART_AT} (snapshot {snap_s:.3f} s); the "
+        f"write goes on in the background")
+    return dict(model=model, params=params, state=state, step_fn=step_fn,
+                batches=batches, opt_cfg=opt_cfg, tmp=tmp, mgr=mgr,
+                losses=losses, snap_s=snap_s, t_write=t_write, layers=layers)
+
+
+def training_restart_end(torch, np, run):
+    """Phase 18c's end: wait for the writer, restore a fresh template on
+    the card from the file and run it to step 20: its state must equal
+    the uninterrupted run's bit for bit, or the differing leaves are named
+    and held at 2 lr a resumed step, the losses at rtol 1e-5.  Prints the
+    checkpoint's bytes, write and read seconds."""
+    import os
+
+    from repro_torch.training import init_optimizer
+
+    label = "training path"
+    mgr, model, opt_cfg = run["mgr"], run["model"], run["opt_cfg"]
+    t = time.perf_counter()
+    mgr.wait()
+    waited = time.perf_counter() - t
+    overlap = t - run["t_write"]
+    path = mgr._path(RESTART_AT)
+    file_bytes = os.path.getsize(path)
+    with open(path, "rb") as f:
+        codec = "zstd" if f.read(47)[43:] == b"\x28\xb5\x2f\xfd" else "zlib"
+    params, state = run["params"], run["state"]
+    payload = sum(x.numel() * x.element_size() for _, x in
+                  _leaf_items({"params": params, "opt": state}))
+    fresh = model.init(1)
+    template = {"params": fresh, "opt": init_optimizer(opt_cfg, fresh)}
+    t = time.perf_counter()
+    restored, meta = mgr.restore_latest(template)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t
+    run["tmp"].cleanup()
+    assert meta["step"] == RESTART_AT
+    p2, s2 = restored["params"], restored["opt"]
+    resumed = []
+    for s in range(RESTART_AT, TRAIN_STEPS):
+        p2, s2, met = run["step_fn"](p2, s2, {"tokens": run["batches"][s]})
+        resumed.append(float(met["loss"]))
+    diff = _differing_leaves(torch, (params, state), (p2, s2))
+    losses = run["losses"]
+    log(f"{label}: checkpoint of the {run['layers']}-layer state at step "
+        f"{RESTART_AT}: {payload} bytes of leaves, {file_bytes} bytes on disk "
+        f"({codec}), snapshot {run['snap_s']:.3f} s, write "
+        f"{mgr.seconds:.2f} s in the background "
+        f"({payload / mgr.seconds / 1e6:.2f} MB/s of leaves; {overlap:.2f} s "
+        f"of other phases beside it, then {waited:.2f} s waited), restore "
+        f"onto the card {read_s:.2f} s; resumed losses {resumed[-1]:.6f} vs "
+        f"{losses[-1]:.6f}; resumed state == uninterrupted bit for bit: "
+        f"{not diff}" + (f"; differing leaves {diff[:6]}" if diff else ""))
+    assert np.isfinite(resumed).all()
+    TRAINING.update(ckpt_bytes=file_bytes, ckpt_payload=payload,
+                    write_s=mgr.seconds, read_s=read_s,
+                    snapshot_s=run["snap_s"], resume_bit_exact=not diff)
+    if diff:
+        lim = 2 * opt_cfg.learning_rate * (TRAIN_STEPS - RESTART_AT)
+        assert max(d for _, d in diff) <= lim, diff
+        assert max(abs(x - y) / abs(x) for x, y in
+                   zip(resumed, losses[RESTART_AT:])) <= 1e-5
+
 def main() -> int:
     import torch
 
@@ -2493,6 +2818,9 @@ def main() -> int:
     free("continuous")
     runs["gateway"] = gateway_path(torch, ops)
     free("gateway")
+    # 18c begins: the 1-layer training restart, whose checkpoint write runs
+    # in the background through phases 14-17
+    restart = training_restart_begin(torch, np, ops)
     # 14. the MoE path, 15. gemma-7b's plain decode path (head dim 256),
     # 16. paligemma-3b and 17. whisper-large-v3 at full width, each freed
     # before the next
@@ -2509,6 +2837,13 @@ def main() -> int:
     free("paligemma-3b")
     runs["whisper"] = encdec_path(torch, ops)
     free("whisper-large-v3")
+    # 18. the training path: smoke models card = CPU, the Mamba-2 refusal,
+    # then tinyllama-1.1b at full width with a checkpoint restart
+    training_reference_check(torch, np, ops)
+    training_path(torch, np, ops)
+    training_restart_end(torch, np, restart)
+    del restart
+    free("training")
 
     for label, prof in PROFILES.items():
         log(f"summary {label}: device busy {prof['device_busy_ms']:.2f} "
@@ -2539,7 +2874,7 @@ def main() -> int:
         f"{GATEWAY['ttft_p50_s']:.4f} s, p95 {GATEWAY['ttft_p95_s']:.4f} s, "
         f"{GATEWAY['tokens_per_s']:.2f} tokens/s")
 
-    # 18. result lines
+    # 19. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))

@@ -13,6 +13,10 @@ block) carry over as they are.  A MoE block's nested ``moe`` dict (router,
 stacked expert weights, ``shared`` / ``dense`` MLPs) is indexed by layer
 leaf by leaf.  Projections keep their (in, out) layout: the port computes
 ``x @ W`` exactly as the JAX package does, so no weight is transposed.
+``params_to_jax(cfg, params)`` is the inverse: the port's tree (parameters,
+or the optimizer's ``m`` / ``v`` of the same structure) re-stacked into the
+reference's layout, so that a training state the port checkpoints restores
+in the reference and the other way round.
 This module imports neither jax nor ``repro``.
 """
 
@@ -35,6 +39,8 @@ def _tensor(x, device) -> torch.Tensor:
 def _convert(tree, device, index=()):
     if isinstance(tree, dict):
         return {k: _convert(v, device, index) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):       # a reference-layout torch tree
+        return (tree[index] if index else tree).to(device, copy=True)
     a = np.asarray(tree)
     return _tensor(a[index] if index else a, device)
 
@@ -46,12 +52,13 @@ LAYER_STACKS = ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
 def _n_layers(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return int(np.asarray(tree).shape[0])
+    return int(tree.shape[0])
 
 
 def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
     """A ``DecoderLM`` (dense, MoE, VLM), ``MambaLM``, ``HybridLM`` or
-    ``EncDecLM`` init pytree (numpy leaves) -> port parameters."""
+    ``EncDecLM`` init pytree (numpy leaves, or torch tensors in the same
+    layout) -> port parameters."""
     params = {k: _convert(v, device) for k, v in tree.items()
               if k not in LAYER_STACKS + ("mamba",)}
     if cfg.family == "hybrid":
@@ -64,3 +71,29 @@ def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
             params[stack] = [_convert(tree[stack], device, (i,))
                              for i in range(_n_layers(tree[stack]))]
     return params
+
+
+def _stack(layers: list):
+    """Per-layer dicts (or nested lists of them) -> one dict whose leaves
+    carry the list's axes in front."""
+    if isinstance(layers[0], list):
+        layers = [_stack(group) for group in layers]
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return torch.stack([t.detach().cpu() for t in layers])
+
+
+def params_to_jax(cfg: ModelConfig, params):
+    """Port parameters (or an optimizer moment of the same structure) -> the
+    reference's layout as CPU torch tensors: ``blocks``, ``dense_blocks``,
+    ``enc_blocks`` and ``dec_blocks`` stacked on a leading layer axis, the
+    hybrid's ``mamba`` on (groups, group_size); every other entry copied.
+    Every leaf is a fresh host tensor."""
+    out = {}
+    for k, v in params.items():
+        if k in LAYER_STACKS or (k == "mamba" and cfg.family == "hybrid"):
+            out[k] = _stack(v)
+        else:
+            out[k] = _convert(v, "cpu")
+    return out

@@ -6,9 +6,13 @@ raises if the kernel does not build, take the inputs or launch); a CPU
 tensor runs the plain PyTorch version beside the kernel.  Every op keeps two
 counters, kernel launches (counted by the wrapper where it launches) and
 plain calls (counted here), so a run can show which path it went through.
-``ssd_decode`` and ``quantize_kv`` are not among them: neither has a kernel
-in the JAX package, and both are plain PyTorch on every device, so "every
-plain counter is 0" still means that no kernel was bypassed.
+No kernel has a backward (the JAX package has none either): on the card an
+op refuses, under grad mode, any floating input that requires grad, rather
+than return an output cut from the graph; its plain version on the CPU is
+differentiable.  ``ssd_decode`` and ``quantize_kv`` are not among the ops:
+neither has a kernel in the JAX package, and both are plain PyTorch on every
+device, so "every plain counter is 0" still means that no kernel was
+bypassed.
 """
 
 from __future__ import annotations
@@ -62,6 +66,19 @@ def _route(x: torch.Tensor) -> str:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
+def _no_grad_through(name: str, *tensors) -> None:
+    """Raise if a kernel would cut ``tensors`` from the autograd graph: the
+    CUDA route writes into a fresh tensor with no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"ops.{name}: an input requires grad, but the CUDA kernel has no "
+            "backward (the JAX package has no backward kernel for this op "
+            "either); run it under torch.no_grad(), or train on the CPU, "
+            "where its plain version is differentiable")
+
+
 def _span(name: str, x: torch.Tensor, route: str):
     """Dispatch span: op name, lead operand shape/dtype and the route taken.
     The args dict is built only when a tracer is installed."""
@@ -82,6 +99,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     route = _route(q)
     with _span("ops.paged_attention", q, route) as sp:
         if route == "cuda":
+            _no_grad_through("paged_attention", q, k_pool, v_pool)
             out = _pa.paged_attention_cuda(q, k_pool, v_pool, page_table,
                                            lengths)
         else:
@@ -108,6 +126,8 @@ def fused_verify_sample(target_logits, draft_tokens, draft_probs, q_idx,
     route = _route(target_logits)
     with _span("ops.fused_verify_sample", target_logits, route) as sp:
         if route == "cuda":
+            _no_grad_through("fused_verify_sample", target_logits,
+                             draft_probs, q_val, u_accept, u_resid)
             out = _fvs.fused_verify_sample_cuda(
                 target_logits, draft_tokens, draft_probs, q_idx, q_val,
                 u_accept, u_resid, draft_len)
@@ -132,6 +152,7 @@ def paged_tree_attention(q, k_pool, v_pool, page_table, lengths, win_mask):
     route = _route(q)
     with _span("ops.paged_tree_attention", q, route) as sp:
         if route == "cuda":
+            _no_grad_through("paged_tree_attention", q, k_pool, v_pool)
             out = _pta.paged_tree_attention_cuda(q, k_pool, v_pool, page_table,
                                                  lengths, win_mask)
         else:
@@ -149,6 +170,7 @@ def gather_softmax_prob(logits, token_ids):
     route = _route(logits)
     with _span("ops.gather_softmax_prob", logits, route) as sp:
         if route == "cuda":
+            _no_grad_through("gather_softmax_prob", logits)
             out = _gsp.gather_softmax_prob_cuda(logits, token_ids)
         else:
             _plain_calls["gather_softmax_prob"] += 1
@@ -164,6 +186,7 @@ def residual_sample(p, q, u):
     route = _route(p)
     with _span("ops.residual_sample", p, route) as sp:
         if route == "cuda":
+            _no_grad_through("residual_sample", p, q, u)
             out = _rs.residual_sample_cuda(p, q, u)
         else:
             _plain_calls["residual_sample"] += 1
@@ -184,6 +207,7 @@ def tree_attention(q, k_cache, v_cache, lengths, win_mask):
     route = _route(q)
     with _span("ops.tree_attention", q, route) as sp:
         if route == "cuda":
+            _no_grad_through("tree_attention", q, k_cache, v_cache)
             out = _ta.tree_attention_cuda(q, k_cache, v_cache, lengths,
                                           win_mask)
         else:
@@ -203,6 +227,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
     route = _route(q)
     with _span("ops.decode_attention", q, route) as sp:
         if route == "cuda":
+            _no_grad_through("decode_attention", q, k_cache, v_cache)
             out = _da.decode_attention_cuda(q, k_cache, v_cache, lengths)
         else:
             _plain_calls["decode_attention"] += 1
@@ -222,6 +247,7 @@ def decode_attention_q8(q, k_cache, v_cache, k_scale, v_scale, lengths):
     route = _route(q)
     with _span("ops.decode_attention_q8", q, route) as sp:
         if route == "cuda":
+            _no_grad_through("decode_attention_q8", q, k_scale, v_scale)
             out = _daq.decode_attention_q8_cuda(q, k_cache, v_cache, k_scale,
                                                 v_scale, lengths)
         else:
@@ -251,6 +277,7 @@ def flash_attention(q, k, v, causal: bool = True):
     route = _route(q)
     with _span("ops.flash_attention", q, route) as sp:
         if route == "cuda":
+            _no_grad_through("flash_attention", q, k, v)
             out = _fa.flash_attention_cuda(q, k, v, causal=causal)
         else:
             _plain_calls["flash_attention"] += 1
@@ -277,6 +304,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 64, initial_state=None):
     route = _route(x)
     with _span("ops.ssd_scan", x, route) as sp:
         if route == "cuda":
+            _no_grad_through("ssd_scan", x, dt, A, B, C, initial_state)
             y, fs = _ssd.ssd_scan_cuda(
                 x.contiguous(), dt.contiguous(), A.contiguous(),
                 B.contiguous(), C.contiguous(), chunk=chunk,

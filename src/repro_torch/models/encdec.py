@@ -37,12 +37,14 @@ from .layers import (
     causal_mask,
     dense_init,
     embed_init,
+    embed_lookup,
     gqa_attention,
     init_attention,
     init_mlp,
     make_norm,
     mlp_apply,
     new_page_pool,
+    remat,
 )
 from .transformer import _dtype, concat_caches, num_params
 
@@ -126,16 +128,21 @@ class EncDecLM:
             _dtype(cfg.compute_dtype))
         S = x.shape[1]
         x = x + params["enc_pos_embed"][None, :S].to(x.dtype)
+        block = remat(self._enc_block, cfg.remat)
         for p in params["enc_blocks"]:
-            h = self.norm(p["ln_attn"], x)
-            B = h.shape[0]
-            q, k, v = _project_qkv(p["attn"], h, cfg.num_heads,
-                                   cfg.num_kv_heads, cfg.head_dim)
-            ctx = self._full_attention(q, k, v, fused)
-            x = x + ctx.to(x.dtype).reshape(B, S, -1) @ p["attn"]["wo"]
-            h = self.norm(p["ln_mlp"], x)
-            x = x + mlp_apply(p["mlp"], h, cfg.activation)
+            x = block(p, x, fused)
         return self.norm(params["ln_enc"], x)
+
+    def _enc_block(self, p, x, fused: bool):
+        cfg = self.cfg
+        h = self.norm(p["ln_attn"], x)
+        B, S, _ = h.shape
+        q, k, v = _project_qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim)
+        ctx = self._full_attention(q, k, v, fused)
+        x = x + ctx.to(x.dtype).reshape(B, S, -1) @ p["attn"]["wo"]
+        h = self.norm(p["ln_mlp"], x)
+        return x + mlp_apply(p["mlp"], h, cfg.activation)
 
     def _cross_kv(self, params, enc_out):
         """Per-layer cross-attention K/V from the encoder output: two lists
@@ -159,31 +166,40 @@ class EncDecLM:
         self-attention K/V are written at ``offset`` (in place)."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
-        x = params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+        x = embed_lookup(params["embed"], tokens).to(
+            _dtype(cfg.compute_dtype))
         pos_idx = positions.long().clamp(0, MAX_DECODER_POS - 1)
-        x = x + params["pos_embed"][pos_idx].to(x.dtype)
-        B, T, _ = x.shape
+        x = x + embed_lookup(params["pos_embed"], pos_idx).to(x.dtype)
+        block = remat(self._dec_block, cfg.remat)
         for i, p in enumerate(params["dec_blocks"]):
-            h = self.norm(p["ln_self"], x)
-            attn, _ = attention_apply(
-                p["self_attn"], h, num_heads=cfg.num_heads,
-                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                positions=positions, rope_theta=None,
-                kv_cache=(None if cache is None
-                          else (cache["k"][i], cache["v"][i])),
-                cache_offset=offset, mask=mask)
-            x = x + attn
-            # cross attention: all encoder frames valid, no rope
-            h = self.norm(p["ln_cross"], x)
-            q = (h @ p["cross_attn"]["wq"]).reshape(B, T, cfg.num_heads,
-                                                    cfg.head_dim)
-            cross = self._full_attention(q, cross_k[i].to(h.dtype),
-                                         cross_v[i].to(h.dtype), fused)
-            x = x + cross.to(x.dtype).reshape(B, T, -1) @ p["cross_attn"]["wo"]
-            h = self.norm(p["ln_mlp"], x)
-            x = x + mlp_apply(p["mlp"], h, cfg.activation)
+            kv = None if cache is None else (cache["k"][i], cache["v"][i])
+            x = block(p, x, cross_k[i], cross_v[i], positions, kv, offset,
+                      mask, fused)
         x = self.norm(params["ln_f"], x)
         return (x @ params["unembed"].to(x.dtype)).float()
+
+    def _dec_block(self, p, x, cross_k, cross_v, positions, kv_cache, offset,
+                   mask, fused: bool):
+        """Self-attention (through the cache when given), cross-attention
+        over the encoder's K/V, MLP."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        h = self.norm(p["ln_self"], x)
+        attn, _ = attention_apply(
+            p["self_attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            positions=positions, rope_theta=None, kv_cache=kv_cache,
+            cache_offset=offset, mask=mask)
+        x = x + attn
+        # cross attention: all encoder frames valid, no rope
+        h = self.norm(p["ln_cross"], x)
+        q = (h @ p["cross_attn"]["wq"]).reshape(B, T, cfg.num_heads,
+                                                cfg.head_dim)
+        cross = self._full_attention(q, cross_k.to(h.dtype),
+                                     cross_v.to(h.dtype), fused)
+        x = x + cross.to(x.dtype).reshape(B, T, -1) @ p["cross_attn"]["wo"]
+        h = self.norm(p["ln_mlp"], x)
+        return x + mlp_apply(p["mlp"], h, cfg.activation)
 
     # ------------------------------------------------------------------
     # Unified API (frames go through ``prefix_embeds``)

@@ -26,11 +26,13 @@ from .layers import (
     causal_mask,
     dense_init,
     embed_init,
+    embed_lookup,
     init_attention,
     init_mlp,
     init_rmsnorm,
     mlp_apply,
     new_page_pool,
+    remat,
     rmsnorm,
 )
 from .ssm import (
@@ -133,17 +135,19 @@ class HybridLM:
     def _forward(self, params, x, positions, mask, cache=None, offset=None,
                  decode=False):
         new_ssm, new_conv = [], []
+        mamba_block = remat(mamba2_block_apply, self.cfg.remat)
+        shared_block = remat(self._shared_block, self.cfg.remat)
         for gi, group in enumerate(params["mamba"]):
             g_ssm, g_conv = [], []
             for li, p in enumerate(group):
                 ssm_s = cache["ssm"][gi, li] if cache is not None else None
                 conv_s = cache["conv"][gi, li] if cache is not None else None
-                x, s_new, c_new = mamba2_block_apply(p, x, self.cfg, ssm_s,
-                                                     conv_s, decode)
+                x, s_new, c_new = mamba_block(p, x, self.cfg, ssm_s, conv_s,
+                                              decode)
                 g_ssm.append(s_new)
                 g_conv.append(c_new)
             kv = None if cache is None else (cache["k"][gi], cache["v"][gi])
-            x, _ = self._shared_block(params, x, positions, mask, kv, offset)
+            x, _ = shared_block(params, x, positions, mask, kv, offset)
             new_ssm.append(torch.stack(g_ssm))
             new_conv.append(torch.stack(g_conv))
         if cache is None:
@@ -152,7 +156,8 @@ class HybridLM:
                    "k": cache["k"], "v": cache["v"]}
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(_dtype(self.cfg.compute_dtype))
+        return embed_lookup(params["embed"], tokens).to(
+            _dtype(self.cfg.compute_dtype))
 
     def _logits(self, params, x):
         x = rmsnorm(params["ln_f"], x)

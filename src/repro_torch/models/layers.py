@@ -14,16 +14,27 @@ cache-free attention for full-sequence scoring, and the mixture of experts
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import precision as _precision  # noqa: F401  (no TF32)
 from repro_torch.kernels import ops as kops
 
 Params = Any  # nested dict of tensors
+
+
+def remat(fn, enabled: bool):
+    """``fn`` under ``torch.utils.checkpoint`` when ``enabled`` (a config's
+    ``remat``, the JAX package's ``jax.checkpoint`` of each block): the
+    block's activations are recomputed in the backward instead of kept."""
+    if not enabled:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -40,6 +51,14 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32):
     w = torch.randn((vocab, dim), generator=gen, device=gen.device)
     return (w * 0.02).to(dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table`` (``F.embedding``).  Its backward sums the
+    gradients of repeated ids in a fixed order on both devices, so a train
+    step is repeatable bit for bit; advanced indexing's backward
+    (``index_put_`` with accumulate) races between threads on the CPU."""
+    return F.embedding(ids.long(), table)
 
 
 # ---------------------------------------------------------------------------

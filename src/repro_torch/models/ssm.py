@@ -25,7 +25,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
-from .layers import dense_init, embed_init, init_rmsnorm, rmsnorm
+from .layers import (
+    dense_init,
+    embed_init,
+    embed_lookup,
+    init_rmsnorm,
+    remat,
+    rmsnorm,
+)
 from .transformer import _dtype
 
 Params = Any
@@ -186,11 +193,11 @@ class MambaLM:
 
     def _stack_forward(self, params, x, cache=None, decode=False):
         new_ssm, new_conv = [], []
+        block = remat(mamba2_block_apply, self.cfg.remat)
         for i, p in enumerate(params["blocks"]):
             ssm_s = cache["ssm"][i] if cache is not None else None
             conv_s = cache["conv"][i] if cache is not None else None
-            x, s_new, c_new = mamba2_block_apply(p, x, self.cfg, ssm_s, conv_s,
-                                                 decode)
+            x, s_new, c_new = block(p, x, self.cfg, ssm_s, conv_s, decode)
             new_ssm.append(s_new)
             new_conv.append(c_new)
         if cache is None:
@@ -198,7 +205,8 @@ class MambaLM:
         return x, {"ssm": torch.stack(new_ssm), "conv": torch.stack(new_conv)}
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(_dtype(self.cfg.compute_dtype))
+        return embed_lookup(params["embed"], tokens).to(
+            _dtype(self.cfg.compute_dtype))
 
     def _logits(self, params, x):
         x = rmsnorm(params["ln_f"], x)

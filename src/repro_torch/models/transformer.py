@@ -49,6 +49,7 @@ from .layers import (
     causal_mask,
     dense_init,
     embed_init,
+    embed_lookup,
     init_attention,
     init_mlp,
     init_moe,
@@ -56,6 +57,7 @@ from .layers import (
     mlp_apply,
     moe_apply,
     new_page_pool,
+    remat,
 )
 
 Params = Any
@@ -206,32 +208,42 @@ class DecoderLM:
         when one is given (paged when it carries ``"pages"``, contiguous
         otherwise); returns (hidden, cache, summed aux loss), the aux loss
         None when no block is MoE (``_aux`` makes it a tensor for the
-        entry points that return it)."""
-        cfg = self.cfg
+        entry points that return it).  With ``cfg.remat`` each of the
+        ``blocks`` runs under ``layers.remat`` (the leading dense blocks do
+        not, as in the JAX package)."""
         page_table = cache.get("pages") if cache is not None else None
         aux = None
         for stack, prefix in (("dense_blocks", "dense_"), ("blocks", "")):
+            block = remat(self._block, self.cfg.remat and stack == "blocks")
             for i, p in enumerate(params.get(stack, ())):
-                h = self.norm(p["ln_attn"], x)
-                attn_out, _ = attention_apply(
-                    p["attn"], h, num_heads=cfg.num_heads,
-                    num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                    positions=positions, rope_theta=cfg.rope_theta,
-                    kv_cache=(None if cache is None
-                              else (cache[prefix + "k"][i],
-                                    cache[prefix + "v"][i])),
-                    cache_offset=offset, page_table=page_table,
-                    window_mask=window_mask, mask=mask)
-                x = x + attn_out
-                h = self.norm(p["ln_mlp"], x)
-                if "moe" in p:
-                    out, layer_aux = moe_apply(p["moe"], h, self.moe_cfg,
-                                               capacity_factor=moe_capacity)
+                kv = (None if cache is None
+                      else (cache[prefix + "k"][i], cache[prefix + "v"][i]))
+                x, layer_aux = block(p, x, positions, kv, offset, page_table,
+                                     window_mask, mask, moe_capacity)
+                if layer_aux is not None:
                     aux = layer_aux if aux is None else aux + layer_aux
-                else:
-                    out = mlp_apply(p["mlp"], h, cfg.activation)
-                x = x + out
         return x, cache, aux
+
+    def _block(self, p, x, positions, kv_cache, offset, page_table,
+               window_mask, mask, moe_capacity):
+        """One pre-norm block: attention, then the MLP or the MoE layer ->
+        (hidden, the MoE aux loss or None)."""
+        cfg = self.cfg
+        h = self.norm(p["ln_attn"], x)
+        attn_out, _ = attention_apply(
+            p["attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            positions=positions, rope_theta=cfg.rope_theta, kv_cache=kv_cache,
+            cache_offset=offset, page_table=page_table,
+            window_mask=window_mask, mask=mask)
+        x = x + attn_out
+        h = self.norm(p["ln_mlp"], x)
+        if "moe" in p:
+            out, layer_aux = moe_apply(p["moe"], h, self.moe_cfg,
+                                       capacity_factor=moe_capacity)
+        else:
+            out, layer_aux = mlp_apply(p["mlp"], h, cfg.activation), None
+        return x + out, layer_aux
 
     @staticmethod
     def _aux(aux, like: torch.Tensor) -> torch.Tensor:
@@ -250,7 +262,8 @@ class DecoderLM:
         return cache["k"].shape[2]
 
     def _embed(self, params, tokens, prefix_embeds=None):
-        x = params["embed"][tokens.long()].to(_dtype(self.cfg.compute_dtype))
+        x = embed_lookup(params["embed"], tokens).to(
+            _dtype(self.cfg.compute_dtype))
         if prefix_embeds is not None:
             x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
                            .to(x.dtype), x], dim=1)

@@ -23,7 +23,8 @@ COPIES = ([f"configs/{p.name}" for p in sorted((SRC / "configs").glob("*.py"))]
           + [f"core/{n}.py" for n in ("goodput", "channel", "bandwidth",
                                       "lambertw", "draft_control", "schemes",
                                       "controller", "beyond", "token_tree")]
-          + ["serving/cell.py", "serving/scheduler.py", "obs/trace.py"]
+          + ["serving/cell.py", "serving/scheduler.py", "obs/trace.py",
+             "training/data.py"]
           + [f"serving/gateway/{n}.py" for n in ("__init__", "client",
                                                  "dashboard", "loadgen",
                                                  "server", "telemetry")])

@@ -45,7 +45,9 @@ second call must give the same bits.  Int8 decode attention
 row of length 0, and its wrapper refuses each input the kernel does not
 take; its bf16 route (the window body over int8 rows) at unit scales
 equals bf16 B7 on the codes bit for bit, split and unsplit, and a second
-call gives the same bits.  This file imports no jax.
+call gives the same bits.  No kernel has a backward: every op refuses,
+under grad mode, an input that requires grad (the Mamba-2 train step
+raises at the SSD scan).  This file imports no jax.
 """
 
 import numpy as np
@@ -246,6 +248,33 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
         "decode_attention": {"kernel": 1, "plain": 0},
         "flash_attention": {"kernel": 1, "plain": 0},
         "decode_attention_q8": {"kernel": 1, "plain": 0}}
+
+
+def test_kernel_ops_refuse_inputs_that_require_grad(cuda):
+    """No kernel has a backward: on the card an op refuses a floating input
+    that requires grad (rather than cut it from the graph), launches nothing
+    then, and runs as before under ``torch.no_grad``; the Mamba-2 model's
+    forward reaches the refusal through its SSD scan."""
+    ops.reset_counts()
+    x, dt, A, B, C, _ = cases.ssd_case(1, 16, 2, 16, 1, 16, torch.float32,
+                                       cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=8)
+    q, k, v = cases.flash_case(2, 9, 9, 4, 2, 16, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k.requires_grad_(), v)
+    assert ops.counts()["ssd_scan"]["kernel"] == 0
+    with torch.no_grad():
+        ops.ssd_scan(x, dt, A, B, C, chunk=8)
+    assert ops.counts()["ssd_scan"]["kernel"] == 1
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.train_loop import value_and_grad
+
+    model = build_model(get_config("mamba2-130m").smoke(), device=cuda)
+    tokens = torch.randint(0, 257, (2, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="ops.ssd_scan"):
+        value_and_grad(model, model.init(0), tokens)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
