@@ -184,7 +184,22 @@ package.  Phases (none catches a failure):
      template restored and run to step 20 against the uninterrupted run,
      bit for bit or within 2 lr a resumed step; checkpoint bytes,
      snapshot, write and read seconds
- 19. summary lines: each profiled path's device busy, wall and idle share
+ 19. the mesh path (``mesh_path``, ``dryrun_begin`` / ``dryrun_end``):
+     a one-rank NCCL group (``HashStore``) and ``make_smoke_mesh()``, the
+     (1, 1) mesh with the production axis names; qwen2.5-3b at full width
+     and depth in bf16 (random weights, seed 0) on contiguous caches, 8 x
+     128-token prompts, max_len 1024: a prefill (B8) and 32 greedy
+     ``forward_window`` steps (B7), once plain and once with params,
+     caches and inputs placed by the sharding rules under ``use_mesh``:
+     logits and tokens equal bit for bit, the same B7/B8 launches, the
+     ``record_collectives`` counts printed, host-timed ms a step both
+     ways; ``compressed_psum_int8`` over the group on a (151936, 2048)
+     float32 leaf = ``dequantize_int8`` of its requantized codes, bit for
+     bit, timed; then the dry run's qwen2.5-3b ``decode_32k`` and
+     ``train_4k`` cells (pod16x16), traced in subprocesses begun before
+     phase 14, each ``ok``: per-device argument bytes and traced peak
+     beside the card's 80 GB, and the roofline line; the group destroyed
+ 20. summary lines: each profiled path's device busy, wall and idle share
      per round, step or batch; per path, the launches of B3, B6, B1, B7,
      B2, B4 and B5 per round, step or batch (counters) beside their
      profiled calls and device ms; the gateway's TTFT and tokens/s; then
@@ -305,6 +320,7 @@ DECODE_CASES = [
     ("gemma-7b decode step", (8, 16, 16, 256, 1024, (128, 160))),
     ("paligemma-3b decode step", (8, 8, 1, 256, 512, (384, 416))),
     ("whisper-large-v3 decoder step", (8, 20, 20, 64, 128, (64, 96))),
+    ("qwen2.5-3b decode step", (8, 16, 2, 128, 1024, (128, 160))),
 ]
 DECODE_HEADLINE = ("tinyllama-1.1b draft step", "bfloat16")
 FLASH_CASES = [
@@ -321,6 +337,7 @@ FLASH_CASES = [
     ("whisper-large-v3 cross-attention prefill",
      (8, 64, 1500, 20, 20, 64, False)),
     ("whisper-large-v3 cross-attention step", (8, 1, 1500, 20, 20, 64, False)),
+    ("qwen2.5-3b prefill", (8, 128, 128, 16, 2, 128, True)),
 ]
 FLASH_HEADLINE = ("llama2-7b prefill", "bfloat16")
 Q8_CASES = [
@@ -2705,6 +2722,225 @@ def training_restart_end(torch, np, run):
         assert max(abs(x - y) / abs(x) for x, y in
                    zip(resumed, losses[RESTART_AT:])) <= 1e-5
 
+MESH_STEPS = 32         # phase 19: greedy one-token windows a run
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k"), ("qwen2.5-3b", "train_4k"))
+MESH = {}       # phase 19's numbers for the summary
+
+
+def greedy_run(torch, model, params, cache, prompts, steps, put):
+    """A prefill of ``prompts`` and ``steps`` greedy one-token
+    ``forward_window`` steps: (logits of every step, as plain tensors,
+    the tokens, host seconds of each step ending in a synchronize).
+    ``put`` places each input (the identity, or the batch sharding)."""
+    K, M = prompts.shape
+    logits, tokens, secs = [], [], []
+
+    def local(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def sync():
+        if prompts.is_cuda:
+            torch.cuda.synchronize(prompts.device)
+
+    with torch.no_grad():
+        t = time.perf_counter()
+        out, cache, _ = model.prefill(params, put(prompts), cache)
+        last = local(out[:, -1])
+        sync()
+        secs.append(time.perf_counter() - t)
+        logits.append(last)
+        for i in range(steps):
+            nxt = last.argmax(-1).to(torch.int32)[:, None]
+            tokens.append(nxt)
+            pos = torch.full((K,), M + i, dtype=torch.int32,
+                             device=prompts.device)
+            t = time.perf_counter()
+            out, cache = model.forward_window(params, put(nxt), cache,
+                                              put(pos))
+            last = local(out[:, -1])
+            sync()
+            secs.append(time.perf_counter() - t)
+            logits.append(last)
+    return logits, tokens, secs
+
+
+def mesh_path(torch, ops, cfg, *, K=8, M=128, steps=MESH_STEPS, max_len=1024,
+              device="cuda", backend="nccl", label="mesh path"):
+    """Phase 19 (a)-(c): a one-rank process group and the (1, 1) mesh with
+    the production axis names; ``cfg`` at full width and depth on
+    contiguous caches, a prefill of ``K`` x ``M`` tokens then ``steps``
+    greedy steps, once plain and once with params, caches and inputs
+    placed as DTensors by the sharding rules under ``use_mesh``: logits
+    and tokens equal bit for bit, the same B7/B8 launches, no plain call;
+    then ``compressed_psum_int8`` over the group on a (151936, 2048)
+    float32 leaf against its plain arithmetic, bit for bit.  The group is
+    destroyed on return.  Returns (launch counts, per-step records,
+    launch counts of the prefill) of the sharded run."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import record_collectives
+
+    if device == "cuda":
+        torch.cuda.set_device(0)    # NCCL's device, before the group
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh(device_type=device)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=device)
+        params = model.init(0)
+        gen = torch.Generator(device=device).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, (K, M), generator=gen,
+                                device=device, dtype=torch.int32)
+        ops.reset_counts()
+        plain = greedy_run(torch, model, params,
+                           model.init_cache(K, max_len, torch.bfloat16),
+                           prompts, steps, lambda t: t)
+        plain_counts = ops.counts()
+        log(f"{label}: {cfg.name} ({cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, D "
+            f"{cfg.head_dim}, V {cfg.vocab_size}) weights and the plain run "
+            f"in {time.perf_counter() - t0:.2f} s")
+
+        dparams = shd.distribute_tree(params, shd.param_shardings(mesh,
+                                                                 params))
+        cache = model.init_cache(K, max_len, torch.bfloat16)
+        c_sh = shd.cache_shardings(mesh, cache, model.CACHE_BATCH_AXES)
+        cache = shd.distribute_tree(cache, c_sh)
+
+        def put(t):
+            return shd.distribute_tree(t, shd.batch_shardings(mesh, t))
+
+        ops.reset_counts()
+        with shd.use_mesh(mesh), record_collectives() as stats:
+            sharded = greedy_run(torch, model, dparams, cache, prompts, steps,
+                                 put)
+        counts = ops.counts()
+        # on the card every call launches a kernel (a CPU try runs the
+        # plain versions)
+        route, other = (("kernel", "plain") if device == "cuda"
+                        else ("plain", "kernel"))
+        for c in (counts, plain_counts):
+            assert c["flash_attention"][route] == cfg.num_layers, c
+            assert c["decode_attention"][route] == cfg.num_layers * steps, c
+            assert all(v[other] == 0 for v in c.values()), c
+        n_diff = sum(int((a != b).sum()) for a, b in zip(sharded[0],
+                                                          plain[0]))
+        assert n_diff == 0, f"{n_diff} logits differ between the runs"
+        assert all(torch.equal(a, b) for a, b in zip(sharded[1], plain[1]))
+        plain_ms = 1e3 * sum(plain[2][1:]) / steps
+        sharded_ms = 1e3 * sum(sharded[2][1:]) / steps
+        MESH.update(plain_step_ms=plain_ms, sharded_step_ms=sharded_ms,
+                    plain_prefill_ms=1e3 * plain[2][0],
+                    sharded_prefill_ms=1e3 * sharded[2][0],
+                    collectives=stats.counts,
+                    collective_bytes=stats.bytes_by_op,
+                    cache_spec=c_sh["k"].spec)
+        log(f"{label}: sharded (1, 1) mesh = plain bit for bit: "
+            f"{len(plain[0])} logit rows of {K} x {cfg.vocab_size} and "
+            f"{steps} greedy tokens; launches sharded "
+            f"{ {k: v['kernel'] for k, v in counts.items() if v['kernel']} } "
+            f"plain "
+            f"{ {k: v['kernel'] for k, v in plain_counts.items() if v['kernel']} }"
+            f"; record_collectives {stats.counts} ({stats.bytes_by_op} "
+            f"bytes); cache spec {c_sh['k'].spec}")
+        log(f"{label}: host-timed ms a step (ends in synchronize): plain "
+            f"{plain_ms:.2f}, sharded {sharded_ms:.2f}; prefill plain "
+            f"{1e3 * plain[2][0]:.2f} ms, sharded {1e3 * sharded[2][0]:.2f} "
+            f"ms")
+        records = [{"step": i, "ms": 1e3 * t}
+                   for i, t in enumerate(sharded[2][1:])]
+        # the prefill's launches: B8 runs there only, B7 in the steps only
+        start = {k: {"kernel": v["kernel"] if k == "flash_attention" else 0,
+                     "plain": 0} for k, v in counts.items()}
+        del dparams, cache, params, model, plain, sharded
+
+        # (c) the int8 all-reduce over the one-rank group
+        x = torch.randn((151936, 2048), generator=gen, device=device)
+        # one rank: the max scale is its own, and the sum is its codes
+        # re-quantized against it, the reference's arithmetic written out
+        q, scale = coll.quantize_int8(x)
+        want = torch.clamp(torch.round(coll.dequantize_int8(q, scale) / scale),
+                           -127, 127).to(torch.int32).to(torch.float32) * scale
+        del q
+        got = coll.compressed_psum_int8(x)
+        n_diff = int((got != want).sum())
+        assert n_diff == 0, f"compressed_psum_int8: {n_diff} values differ"
+        times = []
+        for _ in range(6):
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            coll.compressed_psum_int8(x)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        MESH["psum_int8_ms"] = 1e3 * min(times[1:])
+        log(f"{label}: compressed_psum_int8 over the one-rank {backend} group "
+            f"on a (151936, 2048) float32 leaf = its plain arithmetic bit "
+            f"for bit; host-timed {MESH['psum_int8_ms']:.3f} ms (best of 5 "
+            f"after one warm call, ends in synchronize)")
+        del x, want, got
+        return counts, records, start
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_begin():
+    """Phase 19 (d), begun before phase 14: each of ``DRYRUN_CELLS`` traced
+    by ``python -m repro_torch.launch.dryrun`` in a subprocess of its own
+    (the main process holds the NCCL group of phase 19), on one thread at
+    the lowest priority, results into a fresh directory under build/."""
+    import os
+    import shutil
+
+    out = ROOT / "build" / "dryrun_chip"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        code = ("import sys; from repro_torch.launch import dryrun; "
+                f"dryrun.RESULTS_DIR = {str(out)!r}; "
+                f"sys.exit(dryrun.main(['--arch', {arch!r}, '--shape', "
+                f"{shape!r}, '--mesh', 'single', '--force']))")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(19)))
+    return out, procs
+
+
+def dryrun_end(run, *, label="dry run"):
+    """Phase 19 (d): wait for the cells; each must exit 0 with status ok.
+    Prints per-device argument bytes and traced peak against the card's
+    80 GB, and the roofline line."""
+    out, procs = run
+    for (arch, shape), proc in zip(DRYRUN_CELLS, procs):
+        text, _ = proc.communicate(timeout=900)
+        res = json.loads((out / f"{arch}__{shape}__pod16x16.json").read_text())
+        assert proc.returncode == 0 and res["status"] == "ok", \
+            (proc.returncode, res.get("error"), text[-2000:])
+        mem, rf = res["memory_analysis"], res["roofline"]
+        MESH.setdefault("dryrun", {})[shape] = res
+        log(f"{label}: {arch} {shape} pod16x16 ok in {res['trace_s']} s: "
+            f"per-device arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, traced peak "
+            f"temporaries {mem['traced_peak_temp_bytes'] / 1e9:.3f} GB "
+            f"(card 80 GB: "
+            f"{'fits' if mem['argument_size_in_bytes'] + mem['traced_peak_temp_bytes'] < 80e9 else 'does not fit'}"
+            f"); collectives {res['collective_counts']}; roofline "
+            f"(datasheet rates) bottleneck {rf['bottleneck']}, compute "
+            f"{rf['compute_s']:.3e} s, memory {rf['memory_s']:.3e} s, "
+            f"collective {rf['collective_s']:.3e} s, peak fraction "
+            f"{rf['peak_fraction']:.3f}")
+
+
 def main() -> int:
     import torch
 
@@ -2821,6 +3057,9 @@ def main() -> int:
     # 18c begins: the 1-layer training restart, whose checkpoint write runs
     # in the background through phases 14-17
     restart = training_restart_begin(torch, np, ops)
+    # 19d begins: the two dry-run cells trace on the host's CPU in
+    # subprocesses of their own while phases 14-18 run on the card
+    dry = dryrun_begin()
     # 14. the MoE path, 15. gemma-7b's plain decode path (head dim 256),
     # 16. paligemma-3b and 17. whisper-large-v3 at full width, each freed
     # before the next
@@ -2844,6 +3083,12 @@ def main() -> int:
     training_restart_end(torch, np, restart)
     del restart
     free("training")
+    # 19. the mesh path: a one-rank NCCL group, qwen2.5-3b at full width
+    # on the (1, 1) mesh = plain, the int8 all-reduce, the dry-run cells
+    qwen = get_config("qwen2.5-3b").replace(**bf16)
+    runs["mesh"] = mesh_path(torch, ops, qwen)
+    free("mesh")
+    dryrun_end(dry)
 
     for label, prof in PROFILES.items():
         log(f"summary {label}: device busy {prof['device_busy_ms']:.2f} "
@@ -2853,7 +3098,8 @@ def main() -> int:
               "contiguous tree": "contiguous tree path",
               "hybrid": "hybrid path", "plain decode": "plain decode path",
               "continuous": "continuous path", "gateway": "gateway path",
-              "moe J=1": "MoE path", "gemma decode": "gemma-7b decode path"}
+              "moe J=1": "MoE path", "gemma decode": "gemma-7b decode path",
+              "mesh": "mesh path"}
     for path, (counts, rounds, start) in runs.items():
         prof = PROFILES.get(labels.get(path), {}).get("window_ops", {})
         parts = []
@@ -2869,12 +3115,22 @@ def main() -> int:
                              f"round")
         if parts:
             log(f"summary {path}: " + "; ".join(parts))
+    log(f"summary mesh: qwen2.5-3b on the (1, 1) NCCL mesh = plain bit for "
+        f"bit, host-timed ms a step sharded {MESH['sharded_step_ms']:.2f} / "
+        f"plain {MESH['plain_step_ms']:.2f}, collectives "
+        f"{sum(MESH['collectives'].values())}; compressed_psum_int8 "
+        f"(151936, 2048) f32 {MESH['psum_int8_ms']:.3f} ms; dry run "
+        + ", ".join(f"{shape} args "
+                    f"{r['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f}"
+                    f" GB peak "
+                    f"{r['memory_analysis']['traced_peak_temp_bytes'] / 1e9:.3f}"
+                    f" GB" for shape, r in MESH["dryrun"].items()))
     log(f"summary gateway: {GATEWAY['requests']} requests at 32/s, "
         f"{GATEWAY['rounds']} rounds in {GATEWAY['wall_s']:.2f} s, TTFT p50 "
         f"{GATEWAY['ttft_p50_s']:.4f} s, p95 {GATEWAY['ttft_p95_s']:.4f} s, "
         f"{GATEWAY['tokens_per_s']:.2f} tokens/s")
 
-    # 19. result lines
+    # 20. result lines
     def pick(recs, case, dtype=None):
         return next(r for r in recs if r["case"] == case
                     and (dtype is None or r["dtype"] == dtype))

@@ -8,8 +8,9 @@ port's real-model ``EngineBackend`` on a ``SpecEngine`` and drives the
 session loop, as ``repro.launch.serve`` does.  The engine is built as the
 JAX CLI builds it, ``SpecEngine(target, draft, max_len=512)``: the default
 contiguous cache layout, the batch fixed at start.  Runs on the card unless
-``--device cpu``.  ``--dry-run`` (lowering under a production mesh) is not
-ported yet (ROADMAP A17).
+``--device cpu``.  ``--dry-run`` traces the serve step of ``--shape`` under
+the production mesh on fake tensors (``launch.dryrun.run_cell``) and prints
+its status and roofline.
 """
 
 from __future__ import annotations
@@ -49,9 +50,10 @@ def main(argv=None):
     scheme_params = parse_scheme_args(args.scheme, args.scheme_arg)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers the serve step under a production mesh, which "
-            "is not ported yet (ROADMAP A17)")
+        from repro_torch.launch.dryrun import run_cell
+        res = run_cell(args.arch, args.shape, args.multi_pod, force=True)
+        print(res.get("status"), res.get("roofline", res.get("error")))
+        return
 
     import numpy as np
     import torch

@@ -10,8 +10,9 @@ a VLM's or whisper's prefix is zeros of (batch, prefix_len, d_model).  With
 ``--ckpt-dir`` the state ``{"params", "opt"}`` is written every 50 steps
 in the background (``CheckpointManager.save_async``) and once at the end,
 in the JAX package's layout (``bridge.params_to_jax``), so its
-``checkpoint.load`` reads the files.  ``--dry-run`` (lower and compile
-under the production mesh) is not ported yet (ROADMAP A17).
+``checkpoint.load`` reads the files.  ``--dry-run`` traces the train step
+of ``train_4k`` under the production mesh on fake tensors
+(``launch.dryrun.run_cell``) and prints its status and roofline.
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run lowers the train step under a production mesh, which "
-            "is not ported yet (ROADMAP A17)")
+        from repro_torch.launch.dryrun import run_cell
+        res = run_cell(args.arch, "train_4k", args.multi_pod, force=True)
+        print(res.get("status"), res.get("roofline", res.get("error")))
+        return
 
     import torch
 

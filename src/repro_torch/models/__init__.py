@@ -1,4 +1,9 @@
 """Model zoo of the port: dense / MoE / SSM / hybrid / enc-dec / VLM
 backbones on torch tensors."""
 
-from .model_zoo import build_model, has_prefix_embeds  # noqa: F401
+from .model_zoo import (  # noqa: F401
+    build_model,
+    cache_specs,
+    has_prefix_embeds,
+    input_specs,
+)

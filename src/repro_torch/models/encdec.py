@@ -29,6 +29,10 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    logical_constraint,
+    shards_dividing,
+)
 from repro_torch.kernels import ops as kops
 
 from .layers import (
@@ -124,10 +128,11 @@ class EncDecLM:
         """frames (B, T_frames, d_model) stub embeddings -> encoder output;
         ``fused`` runs the attention through B8."""
         cfg = self.cfg
-        x = torch.as_tensor(frames, device=self.device).to(
-            _dtype(cfg.compute_dtype))
+        x = logical_constraint(torch.as_tensor(frames, device=self.device),
+                               "batch").to(_dtype(cfg.compute_dtype))
         S = x.shape[1]
-        x = x + params["enc_pos_embed"][None, :S].to(x.dtype)
+        x = logical_constraint(
+            x + params["enc_pos_embed"][None, :S].to(x.dtype), "batch")
         block = remat(self._enc_block, cfg.remat)
         for p in params["enc_blocks"]:
             x = block(p, x, fused)
@@ -140,9 +145,11 @@ class EncDecLM:
         q, k, v = _project_qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                                cfg.head_dim)
         ctx = self._full_attention(q, k, v, fused)
-        x = x + ctx.to(x.dtype).reshape(B, S, -1) @ p["attn"]["wo"]
+        x = x + logical_constraint(
+            ctx.to(x.dtype).reshape(B, S, -1) @ p["attn"]["wo"], "batch")
         h = self.norm(p["ln_mlp"], x)
-        return x + mlp_apply(p["mlp"], h, cfg.activation)
+        return x + logical_constraint(mlp_apply(p["mlp"], h, cfg.activation),
+                                      "batch")
 
     def _cross_kv(self, params, enc_out):
         """Per-layer cross-attention K/V from the encoder output: two lists
@@ -150,9 +157,11 @@ class EncDecLM:
         cfg = self.cfg
         B, S, _ = enc_out.shape
         shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
-        ks = [(enc_out @ p["cross_attn"]["wk"]).reshape(shape)
+        ks = [shards_dividing(enc_out @ p["cross_attn"]["wk"], 2,
+                              cfg.num_kv_heads).reshape(shape)
               for p in params["dec_blocks"]]
-        vs = [(enc_out @ p["cross_attn"]["wv"]).reshape(shape)
+        vs = [shards_dividing(enc_out @ p["cross_attn"]["wv"], 2,
+                              cfg.num_kv_heads).reshape(shape)
               for p in params["dec_blocks"]]
         return ks, vs
 
@@ -166,17 +175,19 @@ class EncDecLM:
         self-attention K/V are written at ``offset`` (in place)."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
-        x = embed_lookup(params["embed"], tokens).to(
-            _dtype(cfg.compute_dtype))
+        x = logical_constraint(embed_lookup(params["embed"], tokens),
+                               "batch").to(_dtype(cfg.compute_dtype))
         pos_idx = positions.long().clamp(0, MAX_DECODER_POS - 1)
-        x = x + embed_lookup(params["pos_embed"], pos_idx).to(x.dtype)
+        x = x + logical_constraint(embed_lookup(params["pos_embed"], pos_idx),
+                                   "batch").to(x.dtype)
         block = remat(self._dec_block, cfg.remat)
         for i, p in enumerate(params["dec_blocks"]):
             kv = None if cache is None else (cache["k"][i], cache["v"][i])
             x = block(p, x, cross_k[i], cross_v[i], positions, kv, offset,
                       mask, fused)
         x = self.norm(params["ln_f"], x)
-        return (x @ params["unembed"].to(x.dtype)).float()
+        return logical_constraint((x @ params["unembed"].to(x.dtype)).float(),
+                                  "batch", None, "vocab")
 
     def _dec_block(self, p, x, cross_k, cross_v, positions, kv_cache, offset,
                    mask, fused: bool):
@@ -190,16 +201,20 @@ class EncDecLM:
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
             positions=positions, rope_theta=None, kv_cache=kv_cache,
             cache_offset=offset, mask=mask)
-        x = x + attn
+        x = x + logical_constraint(attn, "batch")
         # cross attention: all encoder frames valid, no rope
         h = self.norm(p["ln_cross"], x)
-        q = (h @ p["cross_attn"]["wq"]).reshape(B, T, cfg.num_heads,
-                                                cfg.head_dim)
+        q = shards_dividing(h @ p["cross_attn"]["wq"], 2,
+                            cfg.num_heads).reshape(B, T, cfg.num_heads,
+                                                   cfg.head_dim)
         cross = self._full_attention(q, cross_k.to(h.dtype),
                                      cross_v.to(h.dtype), fused)
-        x = x + cross.to(x.dtype).reshape(B, T, -1) @ p["cross_attn"]["wo"]
+        x = x + logical_constraint(
+            cross.to(x.dtype).reshape(B, T, -1) @ p["cross_attn"]["wo"],
+            "batch")
         h = self.norm(p["ln_mlp"], x)
-        return x + mlp_apply(p["mlp"], h, cfg.activation)
+        return x + logical_constraint(mlp_apply(p["mlp"], h, cfg.activation),
+                                      "batch")
 
     # ------------------------------------------------------------------
     # Unified API (frames go through ``prefix_embeds``)

@@ -20,6 +20,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 
 from .layers import (
     attention_apply,
@@ -128,9 +129,10 @@ class HybridLM:
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
             positions=positions, rope_theta=cfg.rope_theta, kv_cache=kv_cache,
             cache_offset=offset, mask=mask)
-        x = x + attn_out
+        x = x + logical_constraint(attn_out, "batch")
         h = rmsnorm(p["ln_mlp"], x)
-        return x + mlp_apply(p["mlp"], h, cfg.activation), kv
+        return (x + logical_constraint(mlp_apply(p["mlp"], h, cfg.activation),
+                                       "batch"), kv)
 
     def _forward(self, params, x, positions, mask, cache=None, offset=None,
                  decode=False):
@@ -156,13 +158,14 @@ class HybridLM:
                    "k": cache["k"], "v": cache["v"]}
 
     def _embed(self, params, tokens):
-        return embed_lookup(params["embed"], tokens).to(
-            _dtype(self.cfg.compute_dtype))
+        return logical_constraint(embed_lookup(params["embed"], tokens),
+                                  "batch").to(_dtype(self.cfg.compute_dtype))
 
     def _logits(self, params, x):
         x = rmsnorm(params["ln_f"], x)
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return (x @ w.to(x.dtype)).float()
+        return logical_constraint((x @ w.to(x.dtype)).float(),
+                                  "batch", None, "vocab")
 
     def apply(self, params, tokens, prefix_embeds=None):
         x = self._embed(params, tokens)

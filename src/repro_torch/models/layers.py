@@ -23,6 +23,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import precision as _precision  # noqa: F401  (no TF32)
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import (
+    constrain_attention_scores,
+    logical_constraint,
+    shards_dividing,
+)
 from repro_torch.kernels import ops as kops
 
 Params = Any  # nested dict of tensors
@@ -152,9 +158,11 @@ def _project_qkv(params: Params, x: torch.Tensor, num_heads: int,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, num_heads, head_dim)
-    k = k.reshape(B, S, num_kv_heads, head_dim)
-    v = v.reshape(B, S, num_kv_heads, head_dim)
+    q = shards_dividing(q, 2, num_heads).reshape(B, S, num_heads, head_dim)
+    k = shards_dividing(k, 2, num_kv_heads).reshape(B, S, num_kv_heads,
+                                                    head_dim)
+    v = shards_dividing(v, 2, num_kv_heads).reshape(B, S, num_kv_heads,
+                                                    head_dim)
     return q, k, v
 
 
@@ -170,18 +178,70 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     package does; the contiguous T = 1 windows and the prefill run
     ``ops.decode_attention`` / ``ops.flash_attention`` and the paged path
     ``ops.paged_attention`` instead.
+
+    DTensor inputs run the same core through ``local_map``, on shards laid
+    out as ``sharding.attention_score_spec`` lays out the score tensor
+    (batch over the data axes; kv heads, else query groups, over model;
+    the keys whole over model when it shards the groups): every score and
+    softmax is local to its shard, forward and backward.
     """
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if kops._is_dtensor(q):
+        return _gqa_attention_sharded(q, k, v, mask, scale)
     qg = q.reshape(B, Sq, KV, G, D)
+    return _gqa_core(qg, k, v, mask, scale).reshape(B, Sq, H, D)
+
+
+def _gqa_core(qg, k, v, mask, scale: float):
+    """(B, Sq, KV, G, D) queries against (B, Skv, KV, D) keys and values
+    -> (B, Sq, KV, G, D)."""
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    # keep the O(S^2) score tensor sharded: batch over data axes, kv-heads
+    # (or query-heads) over model; a no-op without an active mesh
+    logits = constrain_attention_scores(logits)
     if mask is not None:
         logits = torch.where(mask, logits,
                              torch.full((), -1e30, device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return torch.einsum("bkgst,btkd->bskgd", probs, v)
+
+
+def _gqa_attention_sharded(q, k, v, mask, scale: float):
+    """``gqa_attention`` of DTensors: ``_gqa_core`` under ``local_map``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    rows, kvs, gs, _, _ = shd.attention_score_spec(mesh, (B, KV, G, Sq, Skv))
+
+    def pl(*dims):
+        return list(shd.placements(dims, mesh))
+
+    qg = shards_dividing(q, 2, KV).reshape(B, Sq, KV, G, D)
+    args, in_pl = [qg, k, v], [pl(rows, None, kvs, gs, None),
+                               pl(rows, None, kvs, None),
+                               pl(rows, None, kvs, None)]
+    if mask is not None:
+        if not kops._is_dtensor(mask):
+            mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
+        args.append(mask)
+        in_pl.append(pl(rows if mask.shape[0] == B else None,
+                        *([None] * (mask.dim() - 1))))
+    out = local_map(
+        kops.contiguous_local(
+            lambda qg, k, v, mask=None: _gqa_core(qg, k, v, mask, scale)),
+        out_placements=pl(rows, None, kvs, gs, None),
+        in_placements=tuple(in_pl), device_mesh=mesh,
+        redistribute_inputs=True)(*args)
+    if gs is not None:          # groups split over model: whole heads first
+        out = out.redistribute(mesh, pl(rows, None, None, None, None))
     return out.reshape(B, Sq, H, D)
 
 
@@ -232,6 +292,8 @@ def update_kv_cache(cache: torch.Tensor, new: torch.Tensor,
     is clamped to [0, S - T] so the whole window lands: a window written at
     an offset past S - T lands at S - T, neither dropped nor refused.
     """
+    if kops._is_dtensor(cache):
+        return _update_kv_cache_sharded(cache, new, offset)
     B, T = new.shape[:2]
     S = cache.shape[1]
     offset = torch.as_tensor(offset, device=cache.device)
@@ -241,6 +303,62 @@ def update_kv_cache(cache: torch.Tensor, new: torch.Tensor,
     idx = start[:, None] + torch.arange(T, device=cache.device)[None, :]
     rows = torch.arange(B, device=cache.device)[:, None]
     cache[rows, idx] = new.to(cache.dtype)
+    return cache
+
+
+def _update_kv_cache_sharded(cache, new, offset):
+    """``update_kv_cache`` into a DTensor cache, in place in each rank's
+    local shard (DTensor has no in-place strategy for the indexed write):
+    ``new`` and ``offset`` are redistributed to follow the cache's rows and
+    kv heads, replicated where the cache shards its sequence over a mesh
+    dim (the reference's sequence-over-model fallback).  There each rank
+    writes the window positions that fall in its [lo, lo + S_local): a
+    window of T <= S_local positions lands at ``pos % S_local``, distinct
+    slots of which the ones outside the rank's range get their old value
+    back; a longer window is gathered into the whole local shard.  No
+    collective touches the cache itself."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    B, S = cache.shape[:2]
+    T = new.shape[1]
+    cpl = tuple(cache.placements)
+    rep = (Replicate(),) * mesh.ndim
+
+    def follow(t, dims):
+        if not kops._is_dtensor(t):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        target = tuple(p if isinstance(p, Shard) and p.dim in dims
+                       else Replicate() for p in cpl)
+        return t.redistribute(mesh, target).to_local()
+
+    offset = torch.as_tensor(offset, device=cache.device)
+    if offset.dim() == 0:
+        offset = offset.expand(B)
+    n = follow(new.to(cache.dtype), (0, 2))
+    start = follow(offset, (0,)).long().clamp(0, S - T)
+    c = cache.to_local()
+    rows = torch.arange(c.shape[0], device=c.device)[:, None]
+    pos = start[:, None] + torch.arange(T, device=c.device)[None, :]
+    seq = [i for i, p in enumerate(cpl) if isinstance(p, Shard) and p.dim == 1]
+    if not seq:
+        c[rows, pos] = n
+        return cache
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in seq:                   # major to minor, as DTensor shards
+        shard = shard * mesh.size(i) + coord[i]
+    S_loc = c.shape[1]
+    lo = shard * S_loc
+    if T <= S_loc:
+        slot = pos % S_loc
+        ok = ((pos >= lo) & (pos < lo + S_loc))[..., None, None]
+        c[rows, slot] = torch.where(ok, n, c[rows, slot])
+    else:
+        w = lo + torch.arange(S_loc, device=c.device)[None, :] - start[:, None]
+        ok = ((w >= 0) & (w < T))[..., None, None]
+        idx = w.clamp(0, T - 1)[..., None, None].expand(-1, -1, *c.shape[2:])
+        c.copy_(torch.where(ok, n.gather(1, idx), c))
     return cache
 
 
@@ -420,8 +538,12 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
             cache_offset, int) and cache_offset == 0:
         k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
         ctx = kops.flash_attention(q, k, v, causal=True)
-        k_cache[:, :S] = k
-        v_cache[:, :S] = v
+        if kops._is_dtensor(k_cache):
+            update_kv_cache(k_cache, k, 0)
+            update_kv_cache(v_cache, v, 0)
+        else:
+            k_cache[:, :S] = k
+            v_cache[:, :S] = v
         out = ctx.to(x.dtype).reshape(B, S, num_heads * head_dim) @ params["wo"]
         return out, (k_cache, v_cache)
     if isinstance(cache_offset, int):
@@ -474,13 +596,20 @@ def init_mlp(gen, d_model: int, d_ff: int, activation: str,
 
 
 def mlp_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    def up(name):
+        # the hidden units over model, the tokens as the batch rule says
+        # (a no-op without an active mesh): DTensor would otherwise
+        # reduce-scatter the partial sums over the tokens, whose flattened
+        # (B * S) its next matmul cannot take
+        return logical_constraint(x @ params[name], "batch", None, "heads")
+
     if activation == "swiglu":
-        return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+        return (F.silu(up("w_gate")) * up("w_up")) @ params["w_down"]
     if activation == "geglu":
-        return (F.gelu(x @ params["w_gate"], approximate="tanh")
-                * (x @ params["w_up"])) @ params["w_down"]
+        return (F.gelu(up("w_gate"), approximate="tanh")
+                * up("w_up")) @ params["w_down"]
     if activation == "gelu":
-        return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
+        return F.gelu(up("w_up"), approximate="tanh") @ params["w_down"]
     raise ValueError(f"unknown activation {activation}")
 
 
@@ -550,15 +679,35 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     products over the (E, C, d) buffer.  The combine undoes the sort with
     the inverse permutation (a gather, deterministic on the card) and sums
     each token's K contributions in float32 over a (T, K, d) view, in a
-    fixed order, where the JAX package has ``segment_sum``."""
+    fixed order, where the JAX package has ``segment_sum``.
+
+    A DTensor ``x`` is dispatched by explicit redistribution: the routing
+    (top-k, ``argsort``, ``searchsorted``, the dispatch and combine
+    scatters, which have no DTensor sharding strategy) runs on every rank
+    over all T tokens, all-gathered with the router, so capacity and drops
+    are the global ones of the reference; the three expert products run as
+    DTensor ``bmm``s of the replicated dispatch buffer with the experts in
+    their own placements (experts over ``model``, d over the data axes),
+    and the expert outputs are all-gathered back for the combine.  The
+    shared and dense-residual MLPs run on ``x`` as it is sharded."""
     B, S, d = x.shape
     E, K = mcfg.num_experts, mcfg.top_k
     T = B * S
     C = moe_capacity(T, mcfg, capacity_factor)
-    xt = x.reshape(T, d)
-    dev = x.device
+    sharded = kops._is_dtensor(x)
+    if sharded:
+        from torch.distributed.tensor import DTensor, Replicate
 
-    logits = xt.float() @ params["router"]                       # (T, E)
+        mesh = x.device_mesh
+        rep = (Replicate(),) * mesh.ndim
+        xt = x.redistribute(mesh, rep).to_local().reshape(T, d)
+        router = params["router"].redistribute(mesh, rep).to_local()
+    else:
+        xt = x.reshape(T, d)
+        router = params["router"]
+    dev = xt.device
+
+    logits = xt.float() @ router                                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)          # (T, K)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -583,6 +732,8 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     # every dropped item lands in row E * C, which nothing reads
     buf.index_copy_(0, slot_sorted, xt.index_select(0, sorted_token))
     buf = buf[:-1].reshape(E, C, d)
+    if sharded:
+        buf = DTensor.from_local(buf, mesh, rep, run_check=False)
     if mcfg.activation in ("swiglu", "geglu"):
         gate = torch.bmm(buf, params["w_gate"])
         gate = (F.silu(gate) if mcfg.activation == "swiglu"
@@ -590,7 +741,10 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
         h = gate * torch.bmm(buf, params["w_up"])
     else:
         h = F.gelu(torch.bmm(buf, params["w_up"]), approximate="tanh")
-    out_buf = torch.cat([torch.bmm(h, params["w_down"]).reshape(E * C, d),
+    out = torch.bmm(h, params["w_down"])
+    if sharded:
+        out = out.redistribute(mesh, rep).to_local()
+    out_buf = torch.cat([out.reshape(E * C, d),
                          torch.zeros((1, d), dtype=x.dtype, device=dev)])
 
     # undo the sort: item i of the flat (T, K) order sits at inv[i]
@@ -602,8 +756,13 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     contrib = out_buf.index_select(0, slot) * weight[:, None]
     y = contrib.reshape(T, K, d).float().sum(dim=1).to(x.dtype)
     y = y.reshape(B, S, d)
+    if sharded:
+        y = DTensor.from_local(y, mesh, rep, run_check=False)
+        y = y.redistribute(mesh, x.placements)
+        aux = DTensor.from_local(aux, mesh, rep, run_check=False)
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x, mcfg.activation)
     if "dense" in params:
         y = y + mlp_apply(params["dense"], x, mcfg.activation)
     return y, aux
+

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.kernels import ops as kops
 
 from .layers import (
@@ -102,7 +103,9 @@ def mamba2_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     d_inner, nheads, g, n, conv_dim = ssm_dims(cfg)
     B_, S, _ = x.shape
     h = rmsnorm(p["ln"], x)
-    zxbcdt = h @ p["in_proj"]
+    # whole over model before the split into z, xBC, dt (a no-op without
+    # an active mesh): the split points need not fall on shard edges
+    zxbcdt = logical_constraint(h @ p["in_proj"], "batch")
     z, xBC, dt = torch.split(zxbcdt, [d_inner, conv_dim, nheads], dim=-1)
     xBC, new_conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"],
                                        conv_state)
@@ -127,9 +130,12 @@ def mamba2_block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y, new_state = kops.ssd_scan(xh, dt, A, Bh, Ch, chunk=cfg.ssm_chunk,
                                      initial_state=ssm_state)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B_, S, d_inner)
+    # whole heads over model before merging (h, p): a state sharded on its
+    # head dim p (the cache rule's fallback) cannot merge
+    y = logical_constraint(y, "batch").reshape(B_, S, d_inner)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    return x + y @ p["out_proj"], new_state, new_conv_state
+    return (x + logical_constraint(y @ p["out_proj"], "batch"), new_state,
+            new_conv_state)
 
 
 def keep_snapshot(snaps: dict | None, cache: dict, keys, t: int, T: int):
@@ -205,13 +211,14 @@ class MambaLM:
         return x, {"ssm": torch.stack(new_ssm), "conv": torch.stack(new_conv)}
 
     def _embed(self, params, tokens):
-        return embed_lookup(params["embed"], tokens).to(
-            _dtype(self.cfg.compute_dtype))
+        return logical_constraint(embed_lookup(params["embed"], tokens),
+                                  "batch").to(_dtype(self.cfg.compute_dtype))
 
     def _logits(self, params, x):
         x = rmsnorm(params["ln_f"], x)
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return (x @ w.to(x.dtype)).float()
+        return logical_constraint((x @ w.to(x.dtype)).float(),
+                                  "batch", None, "vocab")
 
     def apply(self, params, tokens, prefix_embeds=None):
         x, _ = self._stack_forward(params, self._embed(params, tokens))

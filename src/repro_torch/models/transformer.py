@@ -42,6 +42,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 
 from .layers import (
     MoEConfig,
@@ -236,14 +237,18 @@ class DecoderLM:
             positions=positions, rope_theta=cfg.rope_theta, kv_cache=kv_cache,
             cache_offset=offset, page_table=page_table,
             window_mask=window_mask, mask=mask)
-        x = x + attn_out
+        # the residual stream: batch over the data axes, whole over model
+        # (a no-op without an active mesh); DTensor would otherwise leave a
+        # partial sum reduce-scattered over the sequence, which its matmul
+        # cannot flatten
+        x = x + logical_constraint(attn_out, "batch")
         h = self.norm(p["ln_mlp"], x)
         if "moe" in p:
             out, layer_aux = moe_apply(p["moe"], h, self.moe_cfg,
                                        capacity_factor=moe_capacity)
         else:
             out, layer_aux = mlp_apply(p["mlp"], h, cfg.activation), None
-        return x + out, layer_aux
+        return x + logical_constraint(out, "batch"), layer_aux
 
     @staticmethod
     def _aux(aux, like: torch.Tensor) -> torch.Tensor:
@@ -262,8 +267,8 @@ class DecoderLM:
         return cache["k"].shape[2]
 
     def _embed(self, params, tokens, prefix_embeds=None):
-        x = embed_lookup(params["embed"], tokens).to(
-            _dtype(self.cfg.compute_dtype))
+        x = logical_constraint(embed_lookup(params["embed"], tokens), "batch")
+        x = x.to(_dtype(self.cfg.compute_dtype))
         if prefix_embeds is not None:
             x = torch.cat([torch.as_tensor(prefix_embeds, device=x.device)
                            .to(x.dtype), x], dim=1)
@@ -272,7 +277,8 @@ class DecoderLM:
     def _logits(self, params, x):
         x = self.norm(params["ln_f"], x)
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return (x @ w.to(x.dtype)).float()
+        return logical_constraint((x @ w.to(x.dtype)).float(),
+                                  "batch", None, "vocab")
 
     def apply(self, params, tokens, prefix_embeds=None, moe_capacity=None):
         """Full causal forward, no cache.  tokens (B, S), with a VLM's

@@ -72,8 +72,10 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
             loss, nll, grads = value_and_grad(model, params, tokens, prefix)
         else:
             mb = tokens.shape[0] // microbatches
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            # zeros_like: a DTensor parameter's accumulator keeps its
+            # placements
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             params)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             nll = torch.zeros_like(loss)
             for i in range(microbatches):

@@ -378,8 +378,19 @@ def test_train_launcher_runs_without_jax_and_writes_a_reference_file(tmp_path):
     assert all(np.isfinite(np.asarray(x)).all() for x in jax.tree.leaves(got))
 
 
-def test_train_launcher_dry_run_names_its_roadmap_item():
-    from repro_torch.launch import train
+def test_train_launcher_dry_run_names_its_roadmap_item(monkeypatch, capsys):
+    """``--dry-run`` calls ``run_cell`` with the reference launcher's
+    arguments (``train_4k``, the ``--multi-pod`` flag, ``force=True``) and
+    prints its status and roofline, as ``repro.launch.train`` does."""
+    from repro_torch.launch import dryrun, train
 
-    with pytest.raises(NotImplementedError, match="A17"):
-        train.main(["--arch", "tinyllama-1.1b", "--dry-run"])
+    calls = []
+
+    def fake_run_cell(*args, **kw):
+        calls.append((args, kw))
+        return {"status": "ok", "roofline": {"bottleneck": "memory"}}
+
+    monkeypatch.setattr(dryrun, "run_cell", fake_run_cell)
+    train.main(["--arch", "tinyllama-1.1b", "--dry-run", "--multi-pod"])
+    assert calls == [(("tinyllama-1.1b", "train_4k", True), {"force": True})]
+    assert capsys.readouterr().out == "ok {'bottleneck': 'memory'}\n"

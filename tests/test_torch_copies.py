@@ -24,7 +24,8 @@ COPIES = ([f"configs/{p.name}" for p in sorted((SRC / "configs").glob("*.py"))]
                                       "lambertw", "draft_control", "schemes",
                                       "controller", "beyond", "token_tree")]
           + ["serving/cell.py", "serving/scheduler.py", "obs/trace.py",
-             "training/data.py"]
+             "training/data.py", "roofline/analytic.py",
+             "distributed/fault_tolerance.py"]
           + [f"serving/gateway/{n}.py" for n in ("__init__", "client",
                                                  "dashboard", "loadgen",
                                                  "server", "telemetry")])

@@ -1069,3 +1069,77 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return [_to(v, device) for v in tree]
+
+
+@pytest.mark.parametrize("num_kv_heads", [1, 2])
+def test_mesh_route_equals_plain_on_the_card(cuda, num_kv_heads):
+    """Phase 19(b) of ``chip_smoke.py`` at smoke widths: a one-rank NCCL
+    group and the (1, 1) mesh; a bf16 prefill and 6 greedy T=1 steps with
+    params, caches and inputs placed by the sharding rules equal the plain
+    run bit for bit, with the same B7/B8 launches, no plain call and no
+    collective."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import record_collectives
+
+    cfg = get_config("qwen2.5-3b").smoke().replace(
+        num_kv_heads=num_kv_heads, param_dtype="bfloat16",
+        compute_dtype="bfloat16")
+    model = build_model(cfg, device=cuda)
+    K, M, steps = 3, 20, 6
+    prompts = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 257, (K, M)).astype(np.int32)
+    ).to(cuda)
+
+    def run(params, cache, put):
+        out = []
+        with torch.no_grad():
+            logits, cache, _ = model.prefill(params, put(prompts), cache)
+            last = logits[:, -1]
+            last = last.full_tensor() if hasattr(last, "full_tensor") else last
+            out.append(last)
+            for i in range(steps):
+                nxt = last.argmax(-1).to(torch.int32)[:, None]
+                pos = torch.full((K,), M + i, dtype=torch.int32, device=cuda)
+                logits, cache = model.forward_window(params, put(nxt), cache,
+                                                     put(pos))
+                last = logits[:, -1]
+                last = (last.full_tensor() if hasattr(last, "full_tensor")
+                        else last)
+                out.append(last)
+        return out
+
+    params = model.init(0)
+    ops.reset_counts()
+    plain = run(params, model.init_cache(K, 64, torch.bfloat16), lambda t: t)
+    plain_counts = ops.counts()
+    torch.cuda.set_device(0)            # NCCL's device, before the group
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh()
+        dparams = shd.distribute_tree(params,
+                                      shd.param_shardings(mesh, params))
+        cache = model.init_cache(K, 64, torch.bfloat16)
+        cache = shd.distribute_tree(
+            cache, shd.cache_shardings(mesh, cache, model.CACHE_BATCH_AXES))
+
+        def put(t):
+            return shd.distribute_tree(t, shd.batch_shardings(mesh, t))
+
+        ops.reset_counts()
+        with shd.use_mesh(mesh), record_collectives() as coll:
+            sharded = run(dparams, cache, put)
+    finally:
+        dist.destroy_process_group()
+    counts = ops.counts()
+    assert all(torch.equal(a, b) for a, b in zip(sharded, plain))
+    for c in (counts, plain_counts):
+        assert c["flash_attention"]["kernel"] == cfg.num_layers
+        assert c["decode_attention"]["kernel"] == cfg.num_layers * steps
+        assert all(v["plain"] == 0 for v in c.values())
+    assert sum(coll.counts.values()) == 0

@@ -687,15 +687,28 @@ def test_scheduled_cell_session_matches_reference(ref, schedule):
     eng.d_pages.check_invariants()
 
 
-def test_serve_cli_runs_on_cpu(capsys):
+def test_serve_cli_runs_on_cpu(capsys, monkeypatch):
     from repro_torch.launch import serve
 
     serve.main(["--arch", "qwen2.5-3b", "--smoke", "--devices", "3",
                 "--rounds", "2", "--max-new-tokens", "6", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "round 0:" in out and "round 1:" in out and "completed=" in out
-    with pytest.raises(NotImplementedError, match="A17"):
-        serve.main(["--arch", "qwen2.5-3b", "--dry-run"])
+
+    # --dry-run calls run_cell with the reference launcher's arguments and
+    # prints its status and the error of a failed cell
+    from repro_torch.launch import dryrun
+
+    calls = []
+
+    def fake_run_cell(*args, **kw):
+        calls.append((args, kw))
+        return {"status": "error", "error": "KeyError: 'x'"}
+
+    monkeypatch.setattr(dryrun, "run_cell", fake_run_cell)
+    serve.main(["--arch", "qwen2.5-3b", "--dry-run", "--shape", "prefill_32k"])
+    assert calls == [(("qwen2.5-3b", "prefill_32k", False), {"force": True})]
+    assert capsys.readouterr().out == "error KeyError: 'x'\n"
 
 
 if __name__ == "__main__":
