@@ -152,6 +152,25 @@ package.  Phases (none catches a failure):
      launch, no plain call, the pools pass their invariants; TTFT p50/p95
      and tokens/s; then 3 rounds of the same cell stepped directly (8 more
      requests) under torch.profiler
+ 13. the compiled round path (``compiled_path``, ``gateway_compiled``):
+     phase 5's bf16 Llama-2-7B / TinyLlama pair, paged, 8 x 128-token
+     prompts, under the same hete cell and draws in ``eager``,
+     ``jit+donate`` and ``jit`` (20, 20 and 5 rounds): each compiled
+     engine warmed at (8, L) for L in 1..8 (seconds a bucket, captures,
+     the graph pool's GiB), then per round one host sync, the pools'
+     invariants, no capture and no new ``step_shapes`` entry, one replay
+     of each step and no kernel counted from Python; committed tokens
+     equal eager's round for round, bit for bit; 3 profiled rounds
+     (device busy, idle share, kernels, cudaLaunchKernel and
+     cudaGraphLaunch a round), every request leaving with every page
+     back, peak GiB; then (eager, jit+donate) the same engine restarted
+     under ``ContinuousEngine(max_inflight=2, max_batch=4)`` warmed at
+     its buckets, a paced sequence with two draft tickets of one bucket
+     alive at once and batches merged across groups: jit+donate's
+     commits = eager's; then the launcher's cell (phase 12's flags) with
+     ``--compile eager`` and ``--compile jit+donate --warmup-lengths
+     1..8``, 8 SSE requests sent in order behind a first-round barrier:
+     no error, the streamed token ids equal
  14. the MoE path at full width (``moe_path``): moonshot-v1-16b-a3b and a
      2-layer dense draft at its widths, bf16, paged, 8 x 128-token prompts,
      10 J=1 rounds of a ``MultiSpinCell(scheme="hete", L_max=4)`` (one
@@ -1707,6 +1726,318 @@ def gateway_path(torch, ops, *, n_requests=16):
     return counts, rounds, at_start
 
 
+COMPILED_ROUNDS = {"eager": 20, "jit+donate": 20, "jit": 5}
+COMPILED_LENGTHS = tuple(range(1, 9))    # the cells' draft depths (L_max 8)
+COMPILED = {}   # phase 13's numbers for the summary
+
+
+def _graph_pool_gib(torch, engine):
+    """GiB of device memory in the segments of the engine's graph pool."""
+    pool = engine._steps.graphs.pool
+    if pool is None:
+        return 0.0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 2**30
+
+
+def _paced_full(np, cont, iters=3):
+    """Phase 13's externally paced continuous sequence on rows 0-7 with
+    ``max_batch=4``: two draft groups of one bucket alive before either
+    verifies, verified out of order, then batches merged across the
+    groups; lengths 1-8 from a seeded generator.  Returns (accepted,
+    committed) per commit."""
+    out = []
+    eng = cont.engine
+
+    def land(batch):
+        h0 = eng.host_syncs
+        acc = cont.commit(batch)
+        assert eng.host_syncs - h0 == 1, eng.host_syncs - h0
+        eng.t_pages.check_invariants()
+        eng.d_pages.check_invariants()
+        out.append(([int(a) for a in acc],
+                    [[int(t) for t in c] for c in cont.state.committed]))
+
+    rng = np.random.default_rng(7)
+    for _ in range(iters):
+        f = [cont.ensure_stream(r) for r in range(8)]
+        lens = rng.integers(1, 9, 8)
+        cont._dispatch_draft_group(f[:4], lens[:4])
+        cont._dispatch_draft_group(f[4:], lens[4:])
+        first = cont._dispatch_verify(f[:4])
+        second = cont._dispatch_verify(f[4:])
+        land(second)
+        land(first)
+        lens = rng.integers(1, 9, 8)
+        cont._dispatch_draft_group(f[:4], lens[:4])
+        cont._dispatch_draft_group(f[4:], lens[4:])
+        merged = cont._dispatch_verify([f[0], f[1], f[4], f[5]])
+        rest = cont._dispatch_verify([f[2], f[3], f[6], f[7]])
+        land(merged)
+        land(rest)
+    return out
+
+
+def compiled_path(torch, np, ops, tcfg, dcfg, cache_dtype, *, K=8, M=128,
+                  NEW=64, max_len=1024, device="cuda"):
+    """Phase 13: the compiled round path at full width.  For each mode
+    (eager, jit+donate, jit) a fresh paged engine of phase 5's pair, the
+    same prompts, cell and draws: warmup at (K, L) for L in 1..8 (seconds
+    a bucket, captures, graph pool GiB), then ``COMPILED_ROUNDS[mode]``
+    checked rounds (one host sync each, every page pool invariant, no new
+    capture and no new entry of ``step_shapes`` after the warmup, a replay
+    of each step a round and no op counted: the replays launch nothing
+    from Python), 3 profiled rounds, and every request leaving (every page
+    back); committed tokens must equal eager's bit for bit, round for
+    round.  Then, eager and jit+donate, the same engine restarted under
+    ``ContinuousEngine(max_inflight=2, max_batch=4)`` warmed at its
+    buckets: ``_paced_full``'s commits must equal eager's.  Returns the
+    modes' records."""
+    from repro_torch.api import (
+        CellConfig,
+        ChannelConfig,
+        EngineBackend,
+        MultiSpinCell,
+        Request,
+        SpecEngine,
+    )
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompts = torch.randint(0, tcfg.vocab_size, (K, M), generator=gen,
+                            device=device, dtype=torch.int32)
+    host_prompts = prompts.cpu().numpy()
+    snaps, paced = {}, {}
+    engine = cell = backend = state = cont = None
+    for mode, n_rounds in COMPILED_ROUNDS.items():
+        label = f"compiled path {mode}"
+        # the last mode's engine is freed before this one's is built
+        engine = cell = backend = state = cont = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = SpecEngine(tcfg, dcfg, max_len=max_len,
+                            cache_dtype=cache_dtype, cache_kind="paged",
+                            page_size=16, compile_mode=mode, device=device)
+        engine.init_params(0)
+        state = engine.start(prompts)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        state, info = engine.warmup(state, [(K, L) for L in COMPILED_LENGTHS])
+        warm_s = time.perf_counter() - t
+        counts0 = engine.step_counts()
+        shapes0 = set(engine.step_shapes)
+        pool_gib = _graph_pool_gib(torch, engine) if mode != "eager" else 0.0
+        if mode != "eager":
+            assert sorted(info) == [(K, L) for L in COMPILED_LENGTHS], info
+            assert all(c["captures"] == len(COMPILED_LENGTHS)
+                       for c in counts0.values()), counts0
+            log(f"{label}: warmup of {len(info)} buckets in {warm_s:.2f} s: "
+                + ", ".join(f"(8, {L}) {s:.2f} s" for (_, L), s in
+                            sorted(info.items()))
+                + f"; captures {counts0}; graph pool {pool_gib:.3f} GiB, "
+                f"device memory +{(torch.cuda.memory_allocated() - before) / 2**30:.3f}"
+                " GiB allocated")
+        built = []
+        engine.on_step_trace = built.append
+        backend = EngineBackend(engine, state)
+        rng = np.random.default_rng(0)
+        cfg = CellConfig(scheme="hete", scheme_params={},
+                         channel=ChannelConfig(vocab_size=tcfg.vocab_size),
+                         t_ver_fix=0.035, t_ver_lin=0.0177, L_max=8,
+                         max_batch=K)
+        cell = MultiSpinCell(cfg, backend=backend, rng=rng)
+        for i in range(K):
+            cell.submit(Request(rid=i, prompt_len=M, max_new_tokens=NEW,
+                                alpha=float(rng.choice([0.71, 0.74, 0.86])),
+                                T_S=0.009 * float(rng.uniform(0.85, 1.15)),
+                                prompt=tuple(int(x) for x in host_prompts[i])))
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        snaps[mode], times = [], []
+        for i in range(n_rounds):
+            h0 = engine.host_syncs
+            t = time.perf_counter()
+            rec = cell.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            assert rec is not None, f"{label}: drained at round {i}"
+            acc = np.asarray(rec.accepted)
+            assert (acc[np.asarray(rec.active, dtype=bool)] >= 1).all(), i
+            assert engine.host_syncs - h0 == 1, engine.host_syncs - h0
+            engine.t_pages.check_invariants()
+            engine.d_pages.check_invariants()
+            snaps[mode].append([None if c is None else [int(x) for x in c]
+                                for c in backend.state.committed])
+        counts = ops.counts()
+        steps = engine.step_counts()
+        assert all(c["plain"] == 0 for c in counts.values()), counts
+        if mode == "eager":
+            for op in ("paged_attention", "fused_verify_sample"):
+                assert counts[op]["kernel"] > 0, counts
+        else:
+            assert built == [] and engine.step_shapes == shapes0, built
+            assert all(c["kernel"] == 0 for c in counts.values()), counts
+            for s in steps:
+                assert steps[s]["captures"] == counts0[s]["captures"], steps
+                assert (steps[s]["replays"] - counts0[s]["replays"]
+                        == n_rounds), steps
+        same = snaps[mode] == snaps["eager"][:n_rounds]
+        log(f"{label}: {n_rounds} rounds, mean {1e3 * np.mean(times):.2f} ms "
+            f"a round (median {1e3 * np.median(times):.2f}; each "
+            f"{[round(1e3 * t, 2) for t in times]}); one host sync "
+            f"a round; step captures/replays {steps}; committed tokens = "
+            f"eager's round for round: {same}")
+        assert same, f"{label}: committed tokens differ from eager"
+        profile_rounds(torch, cell.step, PROFILE_ROUNDS, label)
+        for r in list(cell.scheduler.active):
+            cell.leave(r.rid)
+        assert engine.t_pages.num_free_pages == engine.num_pages
+        assert engine.d_pages.num_free_pages == engine.num_pages
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        COMPILED[mode] = {"rounds": n_rounds,
+                          "mean_round_ms": 1e3 * float(np.mean(times)),
+                          "warmup_s": warm_s, "buckets": len(info),
+                          "graph_pool_gib": pool_gib, "peak_gib": peak,
+                          "steps": engine.step_counts()}
+        log(f"{label}: every request left, every page of both pools back "
+            f"({engine.num_pages} each); peak memory {peak:.2f} GiB")
+        if mode == "jit":
+            continue
+        # the continuous engine on the same engine, restarted
+        cell = backend = state = None
+        state = engine.start(prompts)
+        cont = ContinuousEngine(engine, state, 11, max_inflight=2,
+                                max_batch=4)
+        t = time.perf_counter()
+        cinfo = cont.warmup([4], [4, 8])
+        cwarm = time.perf_counter() - t
+        built.clear()
+        c0 = engine.step_counts()
+        t = time.perf_counter()
+        paced[mode] = _paced_full(np, cont)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        c1 = engine.step_counts()
+        if mode != "eager":
+            assert built == [], built
+            assert all(c1[s]["captures"] == c0[s]["captures"] for s in c1), c1
+        same = paced[mode] == paced["eager"]
+        COMPILED[mode]["continuous_ms_per_commit"] = 1e3 * dt / len(paced[mode])
+        log(f"{label}, continuous (max_inflight 2, max_batch 4, warmup "
+            f"{sorted(cinfo)} in {cwarm:.2f} s): {len(paced[mode])} commits "
+            f"in {dt:.2f} s, accepted {[a for a, _ in paced[mode]]}; step "
+            f"captures/replays {c1}; commits = eager's: {same}")
+        assert same, f"{label}: continuous commits differ from eager"
+    return COMPILED
+
+
+async def _ordered_burst(cell, n, step_barrier):
+    """``n`` SSE requests sent one after another, each sent once the
+    gateway has queued the one before (so rids and rows follow the send
+    order), the first round held until all are queued.  Returns (streamed
+    tokens by send index, errors)."""
+    import asyncio
+
+    from repro_torch.serving.gateway import (
+        GatewayClient,
+        GatewayConfig,
+        MultiSpinGateway,
+    )
+
+    gw = MultiSpinGateway(cell, GatewayConfig(port=0, idle_wait_s=0.02,
+                                              step_barrier=step_barrier))
+    await gw.start()
+    client = GatewayClient(port=gw.port)
+    tokens, errors = {}, []
+
+    async def one(i, queued):
+        tokens[i] = []
+        stream = client.stream_generate(
+            prompt_len=8, max_new_tokens=(4, 8)[i % 2], alpha=0.8,
+            T_S=0.009 * (1 + 0.05 * i))
+        try:
+            async for ev in stream:
+                if ev.event == "queued":
+                    queued.set()
+                elif ev.event == "round":
+                    tokens[i].extend(ev.data.get("tokens", []))
+                elif ev.event == "done":
+                    return
+                elif ev.event in ("error", "retired"):
+                    errors.append((i, ev.data))
+                    return
+            errors.append((i, "stream ended before done"))
+        finally:
+            queued.set()
+            await stream.aclose()
+
+    try:
+        tasks = []
+        for i in range(n):
+            queued = asyncio.Event()
+            tasks.append(asyncio.create_task(one(i, queued)))
+            await queued.wait()
+        await asyncio.gather(*tasks)
+    finally:
+        await gw.stop()
+    return tokens, errors
+
+
+def gateway_compiled(torch, ops, *, n_requests=8, arch="llama2-7b",
+                     device="cuda"):
+    """Phase 13, the gateway: the launcher's cell (phase 12's flags) built
+    twice, ``--compile eager`` and ``--compile jit+donate
+    --warmup-lengths 1..8``, each serving ``_ordered_burst`` of
+    ``n_requests``: no error, and the jit+donate burst streams the eager
+    burst's token ids."""
+    import asyncio
+
+    from repro_torch.launch import gateway as launcher
+
+    out = {}
+    for mode in ("eager", "jit+donate"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        flags = ["--backend", "engine", "--arch", arch, "--max-len", "1024",
+                 "--max-batch", "8", "--L-max", "8", "--device", device,
+                 "--compile", mode, "--warmup-lengths",
+                 ",".join(map(str, COMPILED_LENGTHS))]
+        t = time.perf_counter()
+        cell = launcher.build_cell(launcher.parser().parse_args(flags))
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t
+        engine = cell.backend.engine
+        ops.reset_counts()
+        c0 = engine.step_counts()
+        t = time.perf_counter()
+        tokens, errors = asyncio.run(_ordered_burst(cell, n_requests,
+                                                    n_requests))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        c1 = engine.step_counts()
+        assert not errors, errors
+        assert all(len(v) > 0 for v in tokens.values()), tokens
+        assert all(c["plain"] == 0 for c in ops.counts().values())
+        engine.t_pages.check_invariants()
+        engine.d_pages.check_invariants()
+        out[mode] = tokens
+        COMPILED[f"gateway {mode}"] = {"wall_s": wall,
+                                       "rounds": len(cell.history),
+                                       "tokens": sum(map(len, tokens.values()))}
+        log(f"compiled path gateway --compile {mode}: build_cell in "
+            f"{built:.2f} s; {n_requests} requests, 0 errors, "
+            f"{len(cell.history)} rounds, "
+            f"{sum(map(len, tokens.values()))} tokens in {wall:.2f} s; step "
+            f"captures/replays during the burst "
+            f"{ {s: c1[s]['replays'] - c0[s]['replays'] for s in c1} } "
+            f"replays, captures {c1}")
+        del cell, engine
+    same = out["jit+donate"] == out["eager"]
+    log(f"compiled path gateway: jit+donate streamed tokens = eager's: {same}")
+    assert same, (out["eager"], out["jit+donate"])
+
 def _dev_us(e):
     """Device microseconds of a profiler average (its own time)."""
     return getattr(e, "self_device_time_total",
@@ -1745,9 +2076,14 @@ def profile_rounds(torch, step, n, label, unit="round"):
         if op:
             ms, calls = by_op.get(op, (0.0, 0.0))
             by_op[op] = (ms + dev_us(e) / 1e3 / done, calls + e.count / done)
+    host = {e.key: e.count / done for e in avgs
+            if e.key in ("cudaLaunchKernel", "cudaGraphLaunch")}
     PROFILES[label] = {"unit": unit, "device_busy_ms": busy / 1e3 / done,
                        "wall_ms": wall_us / 1e3 / done,
-                       "idle_share": 1 - busy / wall_us, "window_ops": by_op}
+                       "idle_share": 1 - busy / wall_us, "window_ops": by_op,
+                       "kernel_calls": sum(e.count for e in kernels) / done,
+                       "kernel_launches": host.get("cudaLaunchKernel", 0.0),
+                       "graph_launches": host.get("cudaGraphLaunch", 0.0)}
     u = unit
     log(f"{label} profile: {done} {u}s, wall {wall_us / 1e3 / done:.2f} ms/{u} "
         f"(profiler on), device busy {busy / 1e3 / done:.2f} ms/{u}, "
@@ -1755,8 +2091,9 @@ def profile_rounds(torch, step, n, label, unit="round"):
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3 / done:9.3f} ms/{u}  {e.count / done:7.1f} "
             f"calls/{u}  {e.key[:90]}")
-    for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize",
-                 "cudaDeviceSynchronize", "cudaHostAlloc"):
+    for name in ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaHostAlloc"):
         hit = [e for e in avgs if e.key == name]
         if hit:
             log(f"  host: {name} {hit[0].count / done:.1f} calls/{u}, "
@@ -3054,6 +3391,12 @@ def main() -> int:
     free("continuous")
     runs["gateway"] = gateway_path(torch, ops)
     free("gateway")
+    # 13. the compiled round path: phase 5's pair in eager, jit+donate and
+    # jit, the continuous engine and the gateway in eager and jit+donate
+    compiled_path(torch, np, ops, *pair)
+    free("compiled path")
+    gateway_compiled(torch, ops)
+    free("compiled gateway")
     # 18c begins: the 1-layer training restart, whose checkpoint write runs
     # in the background through phases 14-17
     restart = training_restart_begin(torch, np, ops)
@@ -3125,6 +3468,18 @@ def main() -> int:
                     f" GB peak "
                     f"{r['memory_analysis']['traced_peak_temp_bytes'] / 1e9:.3f}"
                     f" GB" for shape, r in MESH["dryrun"].items()))
+    for mode in COMPILED_ROUNDS:
+        rec, prof = COMPILED[mode], PROFILES[f"compiled path {mode}"]
+        log(f"summary compiled {mode} ({card}): J=1 paged round "
+            f"{rec['mean_round_ms']:.2f} ms mean over {rec['rounds']} rounds; "
+            f"profiled device busy {prof['device_busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['kernel_calls']:.1f} kernels, "
+            f"{prof['kernel_launches']:.1f} cudaLaunchKernel and "
+            f"{prof['graph_launches']:.1f} cudaGraphLaunch a round; warmup "
+            f"{rec['warmup_s']:.2f} s for {rec['buckets']} buckets; graph pool "
+            f"{rec['graph_pool_gib']:.3f} GiB; peak {rec['peak_gib']:.2f} GiB"
+            + (f"; continuous {rec['continuous_ms_per_commit']:.2f} ms a "
+               f"commit" if "continuous_ms_per_commit" in rec else ""))
     log(f"summary gateway: {GATEWAY['requests']} requests at 32/s, "
         f"{GATEWAY['rounds']} rounds in {GATEWAY['wall_s']:.2f} s, TTFT p50 "
         f"{GATEWAY['ttft_p50_s']:.4f} s, p95 {GATEWAY['ttft_p95_s']:.4f} s, "

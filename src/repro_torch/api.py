@@ -10,10 +10,11 @@
 
 ``SpecEngine(..., cache_kind="paged")`` serves churn from a page pool;
 ``ContinuousBackend`` drives it with continuous batching; the SSE gateway
-(``MultiSpinGateway``) serves a cell live.  The compiled round path comes
-in a later slice (ROADMAP A9).  Like ``repro.api``, importing this module
-loads no torch: the engines, the continuous engine, the page allocator and
-``RoundDraws`` resolve on first use.
+(``MultiSpinGateway``) serves a cell live; ``SpecEngine(...,
+compile_mode="jit+donate")`` runs the J=1 round steps as CUDA graphs.
+Like ``repro.api``, importing this module loads no torch: the engines, the
+continuous engine, the page allocator and ``RoundDraws`` resolve on first
+use.
 """
 
 from repro_torch.configs import get_config  # noqa: F401

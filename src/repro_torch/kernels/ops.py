@@ -6,6 +6,10 @@ raises if the kernel does not build, take the inputs or launch); a CPU
 tensor runs the plain PyTorch version beside the kernel.  Every op keeps two
 counters, kernel launches (counted by the wrapper where it launches) and
 plain calls (counted here), so a run can show which path it went through.
+Both tick in Python: an op inside a CUDA graph counts when the graph is
+captured (and at the eager run before it), never when it is replayed, so
+the compiled round path (``serving/compiled.py``) counts its replays per
+step itself (``SpecEngine.step_counts``).
 No kernel has a backward (the JAX package has none either): on the card an
 op refuses, under grad mode, any floating input that requires grad, rather
 than return an output cut from the graph; its plain version on the CPU is

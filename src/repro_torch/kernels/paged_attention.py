@@ -31,8 +31,8 @@ from . import build
 from .ref import paged_attention_ref as paged_attention_plain
 
 __all__ = ["paged_attention_cuda", "paged_attention_plain", "launches",
-           "scratch_for", "sm_count", "split_plan", "split_ranges",
-           "window_split_plan", "window_split_ranges"]
+           "scratch_buffers", "scratch_for", "sm_count", "split_plan",
+           "split_ranges", "window_split_plan", "window_split_ranges"]
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_PAGE_SIZE = 32
@@ -146,6 +146,13 @@ def scratch_for(device: torch.device, n_floats: int,
         tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
     _scratch[device.index] = (part, tickets)
     return part, tickets
+
+
+def scratch_buffers() -> tuple[torch.Tensor, ...]:
+    """Every split scratch tensor in use now.  A CUDA graph captured with
+    them holds a reference: ``scratch_for`` replaces a buffer it grows,
+    which would free the memory the graph's launches write."""
+    return tuple(t for pair in _scratch.values() for t in pair)
 
 
 def _entry():

@@ -10,8 +10,10 @@ is Prometheus; see ``repro_torch.serving.gateway``), as
 ``repro.launch.gateway`` does.  The synthetic backend needs no torch and
 starts instantly; ``--backend engine`` builds a paged ``SpecEngine`` on
 ``--device`` (the card unless ``--device cpu``) and streams actual
-committed token ids.  The port runs eagerly: ``--compile`` other than
-``eager`` and ``--compile-cache`` are refused (ROADMAP A9).
+committed token ids.  ``--compile jit`` / ``jit+donate`` serve the J=1
+rounds through CUDA graphs of the round steps, captured at ``(max_batch,
+L)`` for each ``--warmup-lengths`` L before serving; ``--compile-cache``
+keeps the built kernels in a directory that outlives the process.
 
 ``--smoke`` does not serve: it runs an in-process loadgen burst against the
 configured cell and prints the report, so the full client->server->cell
@@ -46,12 +48,6 @@ def build_cell(args):
                          seed=args.seed)
         return MultiSpinCell(cfg)
 
-    if args.compile != "eager" or args.compile_cache:
-        raise NotImplementedError(
-            f"--compile {args.compile!r} / --compile-cache need the compiled "
-            "round path, which is not ported yet (ROADMAP A9); the port "
-            "serves --compile eager")
-
     import torch
 
     from repro_torch.api import EngineBackend, SpecEngine
@@ -65,13 +61,25 @@ def build_cell(args):
                                 vocab_size=tcfg.vocab_size, name="draft")
     engine = SpecEngine(tcfg, dcfg, max_len=args.max_len, cache_kind="paged",
                         num_pages=args.max_batch * 2 * (args.max_len // 16),
-                        device=args.device)
+                        compile_mode=args.compile,
+                        compile_cache=args.compile_cache, device=args.device)
     engine.init_params(args.seed)
     gen = torch.Generator(device=engine.device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, tcfg.vocab_size, (args.max_batch, 8),
                             generator=gen, device=engine.device,
                             dtype=torch.int32)
     state = engine.start(prompts)
+    if args.compile != "eager":
+        # capture the round steps before the first live request; the cell
+        # dispatches full-batch rounds at the draft depth the scheme picks,
+        # so warm (max_batch, L) per length
+        lengths = ([int(x) for x in args.warmup_lengths.split(",") if x]
+                   if args.warmup_lengths else [args.L_max])
+        state, info = engine.warmup(
+            state, sorted({(args.max_batch, L) for L in lengths}))
+        print(f"warmup: built {len(info)} bucket(s) in "
+              f"{sum(info.values()):.1f}s "
+              f"(compile cache: {args.compile_cache or 'off'})")
     backend = EngineBackend(engine, state, keep_finished_tokens=True)
     cfg = CellConfig(scheme=args.scheme, scheme_params=scheme_params,
                      schedule=args.schedule, max_batch=args.max_batch,
@@ -148,13 +156,14 @@ def parser() -> argparse.ArgumentParser:
                     help="torch device of the engine (default: the card)")
     ap.add_argument("--compile", default="eager",
                     choices=("eager", "jit", "jit+donate"),
-                    help="engine round-path compile mode; the port runs "
-                         "eager only (ROADMAP A9)")
+                    help="engine round-path compile mode (engine backend): "
+                         "jit / jit+donate replay CUDA graphs of the round "
+                         "steps")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="persistent compilation cache directory; not "
-                         "ported (ROADMAP A9)")
+                    help="kernel build directory kept across restarts "
+                         "(also: REPRO_COMPILE_CACHE)")
     ap.add_argument("--warmup-lengths", default="", metavar="L1,L2,...",
-                    help="draft depths to pre-build at startup when "
+                    help="draft depths to capture at startup when "
                          "--compile != eager (default: L-max only)")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--scheme", default="hete", choices=available_schemes())

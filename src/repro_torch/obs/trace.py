@@ -168,7 +168,8 @@ class Tracer:
                 import torch
 
                 def _sync(value):
-                    if getattr(value, "is_cuda", False):
+                    if (getattr(value, "is_cuda", False)
+                            and not torch.cuda.is_current_stream_capturing()):
                         torch.cuda.synchronize(value.device)
                 self._block = _sync
             self._block(sp._sync)

@@ -248,10 +248,13 @@ class ContinuousEngine:
         self.commits: list[CommitEvent] = []
 
     def warmup(self, batch_sizes, lengths) -> dict:
-        """Pre-build the engine's round steps at every (batch, length)
-        bucket this engine's ``BatchAssembler`` would emit for the given
-        populations.  The port's engine runs eagerly, so its ``warmup`` is
-        a no-op; the returned state is adopted all the same."""
+        """Build (capture) the engine's round steps at every (batch,
+        length) bucket this engine's ``BatchAssembler`` would emit for the
+        given populations, so no bucket is captured mid-round; no-op on
+        eager engines.  Adopts the engine's returned state (a jit+donate
+        commit keeps the state in its donated buffers).  Draft tickets
+        hold copies of a draft graph's outputs, so several tickets of one
+        bucket may be alive at once (``max_inflight`` > 1)."""
         buckets = {(self.assembler.batch_bucket(int(b)),
                     self.assembler.length_bucket(int(L)))
                    for b in batch_sizes for L in lengths}

@@ -34,29 +34,47 @@ The J=1 round is three steps, ``draft_rows`` / ``verify_rows`` /
 padding rows included): the core of continuous batching
 (``serving/continuous.py``).
 
-The port runs eagerly: the compiled modes raise ``NotImplementedError``
-(ROADMAP A9), and ``warmup`` returns at once, as the reference's does in
-eager mode.
+``compile_mode`` (``serving/compiled.py``): the J=1 round's draft, verify
+and commit steps are one body each in every mode.  ``"eager"`` (the
+default, or ``REPRO_COMPILE``) runs them op by op; ``"jit"`` and
+``"jit+donate"`` as CUDA graphs captured once per (step, n, L) bucket and
+replayed, ``warmup`` capturing them ahead of serving (on the CPU the same
+step functions run as they are).  Tree rounds stay eager in every mode,
+and SSM/hybrid models refuse the compiled modes, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.draws import RoundDraws, TreeDraws
-from repro_torch.core.drafting import generate_draft_forest, generate_drafts
+from repro_torch.core.drafting import (
+    DraftResult,
+    generate_draft_forest,
+)
 from repro_torch.core.token_tree import TreeScratch, build_token_tree
-from repro_torch.core.verification import verify_drafts, verify_tree
+from repro_torch.core.verification import (
+    VerifyResult,
+    verify_drafts,
+    verify_tree,
+)
 from repro_torch.models import build_model
 from repro_torch.models.layers import gather_kv_window, scatter_kv_window
 from repro_torch.models.transformer import strip_view
 from repro_torch.obs import trace
 
-from .compiled import COMPILE_MODES, commit_step
+from .compiled import (
+    COMPILE_MODES,
+    STEPS,
+    build_round_steps,
+    setup_compilation_cache,
+)
 from .kv_cache import (
     PagedKVCache,
     PagePoolExhausted,
@@ -139,13 +157,19 @@ class SpecEngine:
     the already-written tree window (target) and the winning run's window
     snapshot (draft) and scatters it to the committed positions — no extra
     forward pass; ``"repair"`` re-forwards [pending, accepted path] through
-    both models.  Both commit identical tokens."""
+    both models.  Both commit identical tokens.
+
+    ``compile_mode``: ``"eager"`` (default: ``REPRO_COMPILE``, else eager),
+    ``"jit"`` or ``"jit+donate"`` — the J=1 round's steps as CUDA graphs
+    (``serving/compiled.py``); ``compile_cache`` the kernel build directory
+    that outlives the process (``setup_compilation_cache``)."""
 
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  max_len: int = 512, cache_dtype=torch.float32,
                  cache_kind: str = "contiguous", page_size: int = 16,
                  num_pages: int | None = None, tree_commit: str = "scatter",
-                 compile_mode: str | None = None, device="cuda"):
+                 compile_mode: str | None = None,
+                 compile_cache: str | None = None, device="cuda"):
         assert target_cfg.vocab_size == draft_cfg.vocab_size, \
             "SLM/LLM pair must share a vocabulary"
         if tree_commit not in ("scatter", "repair"):
@@ -157,11 +181,17 @@ class SpecEngine:
             raise NotImplementedError(
                 "paged caches cover attention KV only; SSM/hybrid recurrent "
                 "state is O(1) per stream and needs no paging (ROADMAP)")
-        compile_mode = compile_mode or "eager"
-        if compile_mode != "eager":
+        if compile_mode is None:
+            compile_mode = os.environ.get("REPRO_COMPILE", "eager")
+        if compile_mode not in COMPILE_MODES:
+            raise ValueError(f"compile_mode must be one of {COMPILE_MODES}, "
+                             f"got {compile_mode!r}")
+        if compile_mode != "eager" and (needs_state_rollback(target_cfg)
+                                        or needs_state_rollback(draft_cfg)):
             raise NotImplementedError(
-                f"compile mode {compile_mode!r} is not ported yet (ROADMAP A9); "
-                f"the port runs {COMPILE_MODES}")
+                "compiled round steps cover attention models; SSM/hybrid "
+                "snapshot rollback re-enters python between the target pass "
+                "and the cache merge (ROADMAP open items)")
         self.device = torch.device(device)
         self.target_cfg = target_cfg
         self.draft_cfg = draft_cfg
@@ -180,12 +210,38 @@ class SpecEngine:
         self.d_pages: PagedKVCache | None = None
         self._free_rows: list[int] = []
         self._retired: set[int] = set()
+        # compiled round path (serving/compiled.py): ``step_shapes`` collects
+        # every (step, n, L) built — the hook fires once per capture, not
+        # per call; ``warmup()`` builds the buckets ahead of serving
+        self.compile_mode = compile_mode
+        if compile_mode != "eager":
+            setup_compilation_cache(compile_cache)
+        self.step_shapes: set[tuple] = set()
+        self.on_step_trace = None
+        self._steps = build_round_steps(self.target, self.draft,
+                                        mode=compile_mode,
+                                        record=self._record_step)
         # host-transfer accounting: every blocking device->host fetch on the
         # round path funnels through ``_host_fetch`` and bumps this
         self.host_syncs = 0
         # host-side accepted counts of the last commit
         self.last_accepted: np.ndarray | None = None
         self._tree_scratch = TreeScratch()
+
+    def _record_step(self, shape: tuple) -> None:
+        self.step_shapes.add(shape)
+        if self.on_step_trace is not None:
+            self.on_step_trace(shape)
+
+    def step_counts(self) -> dict:
+        """``{step: {"captures": n, "replays": n}}`` of the compiled round
+        steps since the last ``start()`` (zeros in eager mode and on the
+        CPU, where no graph is made).  The kernels' own counters tick only
+        when a step is captured, so these show that the path ran through
+        the graphs."""
+        g = self._steps.graphs
+        return {s: {"captures": g.captures[s] if g else 0,
+                    "replays": g.replays[s] if g else 0} for s in STEPS}
 
     def _host_fetch(self, *values: torch.Tensor):
         """Blocking device->host fetch, counted.  The ONE per-round call
@@ -233,6 +289,12 @@ class SpecEngine:
         prompts = torch.as_tensor(prompts, device=self.device)
         B, M = prompts.shape
         self._free_rows, self._retired = [], set()
+        if self._steps.graphs is not None:
+            # a graph replays on the caches it was captured on: the new
+            # caches get graphs of their own
+            self._steps = build_round_steps(self.target, self.draft,
+                                            mode=self.compile_mode,
+                                            record=self._record_step)
         if self.cache_kind == "contiguous":
             self.t_cache = self.target.init_cache(B, self.max_len,
                                                   self.cache_dtype)
@@ -424,11 +486,72 @@ class SpecEngine:
                 raise
 
     def warmup(self, state: StreamState, buckets, vhat: int = 64):
-        """Pre-build the round steps at the given (B, L) buckets.  The port
-        runs eagerly (the compiled modes are refused in the constructor,
-        ROADMAP A9), so there is nothing to build: returns ``(state, {})``,
-        as the reference's eager engine does."""
-        return state, {}
+        """Build (capture) the draft, verify and commit steps at the given
+        (n, L) buckets, so serving never captures mid-round.
+
+        Call after ``start()``.  Each bucket's steps are built from zero
+        inputs at exactly the shapes and dtypes of the real dispatch; a
+        capture records work and runs none.  Returns ``(state, info)``,
+        ``info`` mapping each bucket to its seconds; callers MUST adopt
+        the returned state: in ``jit+donate`` mode it lives in the commit
+        graph's donated buffers (same values).
+
+        Paged engines warm against the real pools under an all--1 page
+        table: the eager run before each capture writes only to the drop
+        slot.  Contiguous engines capture on their real caches (a graph
+        replays on the addresses it was captured on) and run the eager
+        warm-up on a throwaway cache; their buckets must be the full batch.
+        No-op in eager mode."""
+        if self._steps.graphs is None:
+            return state, {}
+        paged = self.cache_kind == "paged"
+        B = int(state.pending.shape[0])
+        dev = self.device
+        V = self.target_cfg.vocab_size
+        info: dict[tuple[int, int], float] = {}
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        for n, L in sorted({(int(n), int(L)) for n, L in buckets}):
+            t0 = time.perf_counter()
+            if paged:
+                pt = torch.full((n, self.pages_per_stream), -1,
+                                dtype=torch.int32, device=dev)
+                warm_d = warm_t = None
+            else:
+                if n != B:
+                    raise ValueError(
+                        f"contiguous caches run full-batch rounds only: "
+                        f"bucket ({n}, {L}) for a batch of {B}")
+                pt = None
+                warm_d = self.draft.init_cache(n, self.max_len,
+                                               self.cache_dtype)
+                warm_t = self.target.init_cache(n, self.max_len,
+                                                self.cache_dtype)
+            pending = zeros(n, dtype=state.pending.dtype)
+            f32 = torch.float32
+            self._steps.draft(self.d_params, self.d_cache, pt, pending,
+                              zeros(n), zeros(L, n, vhat, dtype=f32), L=L,
+                              vhat=vhat, warm_kv=warm_d, run=False)
+            self._steps.verify(
+                self.t_params, self.t_cache, pt, pending, zeros(n, L),
+                zeros(n, L, dtype=f32) + 1, zeros(n, L, vhat),
+                zeros(n, L, vhat, dtype=f32) + 1 / vhat, zeros(n),
+                zeros(n) + L, zeros(n, L, dtype=f32), zeros(n, dtype=f32),
+                zeros(n, V, dtype=f32), warm_kv=warm_t, run=False)
+            # a no-op commit: every slot skipped
+            pend, tpos, dpos, _ = self._steps.commit(
+                state.pending, state.target_pos, state.draft_pos,
+                zeros(n) - 1, torch.ones(n, dtype=torch.bool, device=dev),
+                zeros(n, L + 1), zeros(n), run=False)
+            state = StreamState(pending=pend, target_pos=tpos,
+                                draft_pos=dpos, committed=state.committed)
+            del warm_d, warm_t
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            info[(n, L)] = time.perf_counter() - t0
+        return state, info
 
     # ------------------------------------------------------------------
     # round steps (reusable on row subsets — the continuous engine's core)
@@ -476,10 +599,10 @@ class SpecEngine:
             if b < 0 or b in self._retired:
                 frz[i] = True
         L = max(int(lengths.max()), int(pad_to))
-        d_cache = self.d_cache
+        d_pt = None
         if paged:
             self._grow_pages(state, row_list, frz, L + 1, L + 1)
-            d_cache = dict(d_cache, pages=self.d_pages.device_table(row_list))
+            d_pt = self.d_pages.device_table(row_list)
 
         if full:
             pending, dpos, tpos = (state.pending, state.draft_pos,
@@ -501,11 +624,12 @@ class SpecEngine:
                                    gather(state.target_pos))
 
         # --- step 2: distributed drafting (SLM) ---
+        # one graph per (n, L) bucket in a compiled mode, the page table a
+        # static input; the draft KV is written in place in every mode
         with _span("engine.draft", {"B": n, "L": L}) as sp:
-            draft_res = generate_drafts(self.draft, self.d_params, d_cache,
-                                        pending, dpos, L, draft_gumbel,
-                                        vhat=vhat)
-            self.d_cache = strip_view(draft_res.cache)
+            draft_res = DraftResult(*self._steps.draft(
+                self.d_params, self.d_cache, d_pt, pending, dpos,
+                draft_gumbel, L=L, vhat=vhat), cache=None)
             sp.attach(draft_res.tokens)
         return RoundTicket(rows=None if full else row_list, lengths=lengths,
                            L=L, freeze=frz, pending=pending, target_pos=tpos,
@@ -526,22 +650,31 @@ class SpecEngine:
         draft_res = ticket.draft
         draft_len = host_to_device(np.asarray(ticket.lengths, np.int32),
                                    self.device)
-        t_cache = self.t_cache
-        if self.cache_kind == "paged":
-            t_cache = dict(t_cache, pages=self.t_pages.device_table(row_list))
+        t_pt = (self.t_pages.device_table(row_list)
+                if self.cache_kind == "paged" else None)
+        if not needs_state_rollback(self.target_cfg):
+            # --- step 4: batched verification (LLM) ---
+            # the target pass AND the accept test, one step (compiled: one
+            # graph per (n, L) bucket); the target KV is written in place
+            with _span("engine.verify_step",
+                       {"B": n, "W": ticket.L + 1}) as sp:
+                res = VerifyResult(*self._steps.verify(
+                    self.t_params, self.t_cache, t_pt, ticket.pending,
+                    draft_res.tokens, draft_res.probs, draft_res.q_idx,
+                    draft_res.q_val, ticket.target_pos, draft_len, u_accept,
+                    u_resid, bonus_gumbel))
+                sp.attach(res.accept_counts)
+            ticket.res = res
+            return ticket
 
-        # --- step 4: batched verification (LLM) ---
+        # an SSM/hybrid target (eager only): the target pass keeps a state
+        # snapshot per window step, and each row rolls back to its own
         window = torch.cat([ticket.pending[:, None].to(draft_res.tokens.dtype),
                             draft_res.tokens], dim=1)          # (n, L+1)
         with _span("engine.target_pass", {"B": n, "W": ticket.L + 1}) as sp:
-            if needs_state_rollback(self.target_cfg):
-                logits, t_cache, snaps = self.target.forward_window(
-                    self.t_params, window, t_cache, ticket.target_pos,
-                    return_snapshots=True)
-            else:
-                logits, t_cache = self.target.forward_window(
-                    self.t_params, window, t_cache, ticket.target_pos)
-                snaps = None
+            logits, t_cache, snaps = self.target.forward_window(
+                self.t_params, window, self.t_cache, ticket.target_pos,
+                return_snapshots=True)
             sp.attach(logits)
 
         with _span("engine.verify_tokens", {"B": n, "L": ticket.L}) as sp:
@@ -552,11 +685,9 @@ class SpecEngine:
 
         # row b processed [pending, d_1 .. d_n]: snapshot n (the state after
         # window[:, :n+1]) is the one its accepted prefix keeps
-        if snaps is not None:
-            sel = select_snapshots(snaps, res.accept_counts,
-                                   self.target.CACHE_BATCH_AXES)
-            t_cache = merge_snapshot_into_cache(t_cache, sel)
-        self.t_cache = strip_view(t_cache)
+        sel = select_snapshots(snaps, res.accept_counts,
+                               self.target.CACHE_BATCH_AXES)
+        self.t_cache = merge_snapshot_into_cache(t_cache, sel)
         ticket.res = res
         return ticket
 
@@ -589,7 +720,7 @@ class SpecEngine:
             rows_dev = host_to_device(np.asarray(row_list, np.int32),
                                       self.device)
             skip_dev = host_to_device(skip_np, self.device)
-            pend, tpos, dpos, emission = commit_step(
+            pend, tpos, dpos, emission = self._steps.commit(
                 state.pending, state.target_pos, state.draft_pos, rows_dev,
                 skip_dev, res.output_tokens, res.accept_counts)
             pack = self._host_fetch(emission)    # the ONE host sync

@@ -4,7 +4,8 @@ The jax-free modules the cell needs are copied into ``repro_torch`` rather
 than imported from ``repro``.  Each copy must equal its original line for
 line once import lines are dropped (``repro.`` -> ``repro_torch.`` is the
 only edit there).  The one exception is ``obs/trace.py``'s device-sync hunk,
-where ``jax.block_until_ready`` becomes ``torch.cuda.synchronize``.
+where ``jax.block_until_ready`` becomes ``torch.cuda.synchronize``, skipped
+while a CUDA graph is being captured (a capture may not synchronize).
 """
 
 import importlib
@@ -39,7 +40,8 @@ TRACE_HUNK = (
     ["                import torch",
      "",
      "                def _sync(value):",
-     "                    if getattr(value, \"is_cuda\", False):",
+     "                    if (getattr(value, \"is_cuda\", False)",
+     "                            and not torch.cuda.is_current_stream_capturing()):",
      "                        torch.cuda.synchronize(value.device)",
      "                self._block = _sync"],
 )

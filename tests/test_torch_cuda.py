@@ -1143,3 +1143,159 @@ def test_mesh_route_equals_plain_on_the_card(cuda, num_kv_heads):
         assert c["decode_attention"]["kernel"] == cfg.num_layers * steps
         assert all(v["plain"] == 0 for v in c.values())
     assert sum(coll.counts.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the compiled round path: CUDA graphs of the draft, verify and commit steps
+# ---------------------------------------------------------------------------
+
+def _compiled_engine(mode, cache_kind, device, n=3):
+    from repro_torch.configs import get_config
+    from repro_torch.serving import SpecEngine
+
+    tcfg = get_config("qwen2.5-3b").smoke()
+    dcfg = tcfg.replace(num_layers=1, d_model=32, num_heads=2, num_kv_heads=1,
+                        head_dim=16, d_ff=64, name="draft-smoke")
+    kw = {"num_pages": n * 2 * 6} if cache_kind == "paged" else {}
+    eng = SpecEngine(tcfg, dcfg, max_len=96, cache_kind=cache_kind,
+                     compile_mode=mode, device=device, **kw)
+    eng.init_params(0)
+    prompts = np.random.default_rng(1).integers(0, 257, (n, 10))
+    return eng, eng.start(torch.from_numpy(prompts.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("cache_kind", ["paged", "contiguous"])
+@pytest.mark.parametrize("mode", ["jit", "jit+donate"])
+def test_compiled_rounds_on_the_card_equal_eager(cuda, mode, cache_kind):
+    """J=1 rounds replaying the captured steps, with a tree round (eager in
+    every mode) between them, commit the eager engine's tokens bit for bit
+    with one host sync a J=1 round; after the warmup nothing is captured,
+    each J=1 round replays each step once, and no plain version runs."""
+    from repro_torch.core.draws import RoundDraws, TreeDraws
+
+    rounds = [(1, [4, 2, 3]), (1, [1, 4, 4]), (2, [3, 4, 2]), (1, [4, 4, 1]),
+              (1, [2, 3, 4])]
+    out = {}
+    for m in ("eager", mode):
+        eng, st = _compiled_engine(m, cache_kind, cuda)
+        st, info = eng.warmup(st, [(3, 4)], vhat=64)
+        before = eng.step_counts()
+        ops.reset_counts()
+        syncs = []
+        for r, (J, lengths) in enumerate(rounds):
+            draws = (RoundDraws.sample(r, 3, 4, 64, 257, cuda) if J == 1
+                     else TreeDraws.sample(r, 3, J, 4, 64, 257, cuda))
+            h0 = eng.host_syncs
+            st, _, _ = eng.spin_round(st, np.asarray(lengths), draws,
+                                      vhat=64, draft_width=J)
+            syncs.append(eng.host_syncs - h0)
+        out[m] = [list(map(int, c)) for c in st.committed]
+        after = eng.step_counts()
+        assert syncs == [1 if J == 1 else 2 for J, _ in rounds], syncs
+        assert all(c["plain"] == 0 for c in ops.counts().values())
+        if m != "eager":
+            assert len(info) == 1 and eng.step_shapes == {
+                ("draft", 3, 4), ("verify", 3, 4), ("commit", 3, 4)}
+            for step in ("draft", "verify", "commit"):
+                assert after[step]["captures"] == before[step]["captures"] == 1
+                assert after[step]["replays"] - before[step]["replays"] == 4
+        if cache_kind == "paged":
+            eng.t_pages.check_invariants()
+            eng.d_pages.check_invariants()
+    assert out[mode] == out["eager"]
+
+
+def test_compiled_steps_make_no_host_sync(cuda):
+    """After the warmup, ``draft_rows`` and ``verify_rows`` of a jit+donate
+    engine run under ``set_sync_debug_mode("error")``: no host sync on the
+    dispatch path (the reference's ``transfer_guard`` test)."""
+    from repro_torch.core.draws import RoundDraws
+
+    eng, st = _compiled_engine("jit+donate", "paged", cuda)
+    st, _ = eng.warmup(st, [(3, 4)], vhat=64)
+    d = RoundDraws.sample(0, 3, 4, 64, 257, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ticket = eng.draft_rows(st, [0, 1, 2], np.array([4, 4, 4]),
+                                d.draft_gumbel, vhat=64)
+        ticket = eng.verify_rows(ticket, d.u_accept, d.u_resid,
+                                 d.bonus_gumbel)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st, accepted = eng.commit_rows(st, ticket)
+    assert np.all(accepted >= 1)
+    assert eng.step_counts()["verify"] == {"captures": 1, "replays": 1}
+
+
+def test_continuous_tickets_of_one_bucket_on_the_card(cuda):
+    """Two draft tickets of one (2, 4) bucket alive before either verifies,
+    verified out of order, then batches merged across the groups: a
+    jit+donate continuous engine commits what the eager one does (a ticket
+    holds copies of the draft graph's outputs, which the next replay of
+    the bucket overwrites)."""
+    from repro_torch.serving.continuous import ContinuousEngine
+
+    def paced(cont):
+        out = []
+
+        def land(batch):
+            acc = cont.commit(batch)
+            out.append(([int(a) for a in acc],
+                        [[int(t) for t in c] for c in cont.state.committed]))
+
+        for _ in range(2):
+            f = {r: cont.ensure_stream(r) for r in range(4)}
+            cont._dispatch_draft_group([f[0], f[1]], np.array([4, 3]))
+            cont._dispatch_draft_group([f[2], f[3]], np.array([2, 4]))
+            first = cont._dispatch_verify([f[0], f[1]])
+            second = cont._dispatch_verify([f[2], f[3]])
+            land(second)
+            land(first)
+            cont._dispatch_draft_group([f[0], f[1]], np.array([3, 4]))
+            cont._dispatch_draft_group([f[2], f[3]], np.array([4, 1]))
+            merged = cont._dispatch_verify([f[0], f[2]])
+            rest = cont._dispatch_verify([f[1], f[3]])
+            land(merged)
+            land(rest)
+        return out
+
+    out = {}
+    for mode in ("eager", "jit+donate"):
+        eng, st = _compiled_engine(mode, "paged", cuda, n=4)
+        cont = ContinuousEngine(eng, st, 9, max_inflight=2, max_batch=2)
+        cont.warmup([2], [4])
+        out[mode] = paced(cont)
+        eng.t_pages.check_invariants()
+        eng.d_pages.check_invariants()
+        if mode != "eager":
+            counts = eng.step_counts()
+            assert all(c["captures"] == 1 for c in counts.values()), counts
+            assert counts["draft"]["replays"] == 8, counts
+    assert out["jit+donate"] == out["eager"]
+
+
+def test_b2_launch_is_captured_and_replayed(cuda):
+    """The verification kernel's cooperative launch (split vocabulary,
+    C > 1) inside a CUDA graph: replays give the eager call's bits, and a
+    replay after new inputs are copied in gives the eager call's on those."""
+    a = verify_case(8, 8, 32000, 64, cuda, seed=0)
+    b = verify_case(8, 8, 32000, 64, cuda, seed=1)
+    assert fvs.split_plan(a[0], a[3])[0] > 1
+    want_a = fvs.fused_verify_sample_cuda(*a)
+    want_b = fvs.fused_verify_sample_cuda(*b)
+    static = [t.clone() for t in a]
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fvs.fused_verify_sample_cuda(*static)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        got = fvs.fused_verify_sample_cuda(*static)
+    for inputs, want in ((a, want_a), (b, want_b), (a, want_a)):
+        for buf, t in zip(static, inputs):
+            buf.copy_(t)
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))

@@ -337,28 +337,46 @@ def _two_threads():
     torch.set_num_threads(prev)
 
 
-def _port_engine(ref):
+def _port_engine(ref, compile_mode="eager"):
     from repro_torch.serving import SpecEngine
 
     tcfg, dcfg = _cfgs(tcfgs)
     eng = SpecEngine(tcfg, dcfg, max_len=MAX_LEN, cache_kind="paged",
-                     num_pages=NUM_PAGES, device="cpu")
+                     num_pages=NUM_PAGES, compile_mode=compile_mode,
+                     device="cpu")
     eng.t_params = params_from_jax(tcfg, ref["t_params"], device="cpu")
     eng.d_params = params_from_jax(dcfg, ref["d_params"], device="cpu")
     return eng
+
+
+def _warmed(eng, buckets):
+    """The (step, n, L) records a compiled engine holds once its buckets
+    are warmed: a round must add none (eager records nothing)."""
+    if eng.compile_mode == "eager":
+        return set()
+    return {(step, n, L) for step in ("draft", "verify", "commit")
+            for n, L in buckets}
 
 
 # ---------------------------------------------------------------------------
 # engine, cell
 # ---------------------------------------------------------------------------
 
-def test_engine_rounds_match_reference(ref):
+def _check_engine_rounds(ref, compile_mode):
+    """Engine rounds with a frozen row, a retire and a recycled row: draft
+    tokens and probs, accept counts, output tokens, host syncs, pools,
+    page tables and committed lists equal the reference's, round for
+    round.  A compiled engine is warmed at the rounds' buckets first and
+    builds nothing after that."""
     from repro_torch.kernels import ops
 
-    eng = _port_engine(ref)
+    eng = _port_engine(ref, compile_mode)
     start, late = _prompts()
     st = eng.start(torch.from_numpy(start))
     V = eng.target_cfg.vocab_size
+    buckets = sorted({(B, max(lengths)) for lengths in ROUND_LENGTHS})
+    st, _ = eng.warmup(st, buckets, vhat=VHAT)
+    assert eng.step_shapes == _warmed(eng, buckets)
     ops.reset_counts()
     for r, (lengths, want) in enumerate(zip(ROUND_LENGTHS, ref["engine_rounds"])):
         if r == 2:
@@ -388,10 +406,23 @@ def test_engine_rounds_match_reference(ref):
         assert _committed(st) == want["committed"]
         eng.t_pages.check_invariants()
         eng.d_pages.check_invariants()
+    assert eng.step_shapes == _warmed(eng, buckets)
     # the CPU path ran the plain versions only
     c = ops.counts()
     assert c["paged_attention"]["plain"] > 0 and c["fused_verify_sample"]["plain"] == 4
     assert c["paged_attention"]["kernel"] == c["fused_verify_sample"]["kernel"] == 0
+
+
+def test_engine_rounds_match_reference(ref):
+    _check_engine_rounds(ref, "eager")
+
+
+@pytest.mark.parametrize("compile_mode", ["jit", "jit+donate"])
+def test_compiled_engine_rounds_match_reference(ref, compile_mode):
+    """The compiled modes against the reference's engine on its weights
+    and draws: donated state, the state adopted from ``warmup``, and a
+    retire and ``add_streams`` between compiled rounds."""
+    _check_engine_rounds(ref, compile_mode)
 
 
 def test_cell_session_matches_reference(ref):
@@ -573,18 +604,50 @@ def test_paged_kv_cache_churn_matches_reference():
         t.check_invariants()
 
 
-def test_unported_engine_paths_name_their_roadmap_item():
-    from repro_torch.launch import gateway
-    from repro_torch.serving import SpecEngine
+def test_unported_engine_paths_name_their_roadmap_item(monkeypatch, tmp_path):
+    """The compiled round path (ROADMAP A9) is ported: the gateway launcher
+    takes ``--compile jit+donate --compile-cache DIR``, warms its buckets,
+    points the kernel build directory at DIR, and the cell serves a smoke
+    burst without an error."""
+    import asyncio
 
-    tcfg, dcfg = _cfgs(tcfgs)
-    with pytest.raises(NotImplementedError, match="A9"):
-        SpecEngine(tcfg, dcfg, compile_mode="jit", device="cpu")
-    for flags in (["--compile", "jit"], ["--compile-cache", "cache"]):
-        args = gateway.parser().parse_args(
-            ["--backend", "engine", "--smoke-arch", "--device", "cpu"] + flags)
-        with pytest.raises(NotImplementedError, match="A9"):
-            gateway.build_cell(args)
+    from repro_torch.kernels import build
+    from repro_torch.launch import gateway
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    cache = tmp_path / "kernels"
+    args = gateway.parser().parse_args(
+        ["--backend", "engine", "--smoke-arch", "--device", "cpu",
+         "--compile", "jit+donate", "--compile-cache", str(cache),
+         "--max-batch", "4", "--L-max", "4", "--warmup-lengths", "2,4"])
+    cell = gateway.build_cell(args)
+    engine = cell.backend.engine
+    assert engine.compile_mode == "jit+donate"
+    assert build.BUILD_DIR == cache and cache.is_dir()
+    assert {s for s in engine.step_shapes if s[0] == "draft"} \
+        == {("draft", 4, 2), ("draft", 4, 4)}
+
+    async def burst():
+        from repro_torch.serving.gateway import (
+            GatewayConfig,
+            LoadGenConfig,
+            MultiSpinGateway,
+            run_loadgen,
+        )
+
+        gw = MultiSpinGateway(cell, GatewayConfig(port=0, idle_wait_s=0.02))
+        await gw.start()
+        try:
+            return await run_loadgen(
+                "127.0.0.1", gw.port,
+                LoadGenConfig(rate_per_s=32.0, n_requests=6,
+                              max_new_tokens_choices=(4, 8), seed=0))
+        finally:
+            await gw.stop()
+
+    report = asyncio.run(burst())
+    assert report["n_error"] == 0, report["errors"]
+    assert report["n_ok"] == 6 and report["tokens"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -597,16 +660,17 @@ def _assert_same_view(got, want):
     np.testing.assert_array_equal(got["d_table"], want["d_table"])
 
 
-def test_forced_barrier_continuous_engine_matches_reference(ref):
-    """(a) ``max_inflight=1, exact_shapes=True``: every tick commits the same
-    rows, counts and tokens as the reference's, with the same pages."""
+def _check_forced_barrier(ref, compile_mode):
     from repro_torch.serving.continuous import ContinuousEngine
 
-    eng = _port_engine(ref)
+    eng = _port_engine(ref, compile_mode)
     cont = ContinuousEngine(eng, eng.start(torch.from_numpy(_prompts()[0])),
                             42, max_inflight=1, exact_shapes=True,
                             draws=JaxKeyedDraws())
+    cont.warmup([B], [4])
+    assert eng.step_shapes == _warmed(eng, [(B, 4)])
     got = _barrier_steps(cont, len(ref["barrier"]))
+    assert eng.step_shapes == _warmed(eng, [(B, 4)])
     for g, w in zip(got, ref["barrier"]):
         assert len(g["events"]) == len(w["events"]) == 1
         for (rows, acc, occ, seq), (wrows, wacc, wocc, wseq) in zip(
@@ -618,21 +682,33 @@ def test_forced_barrier_continuous_engine_matches_reference(ref):
     assert sorted(cont.assembler.shapes) == ref["barrier_shapes"] == [(B, 4)]
 
 
-def test_externally_paced_continuous_engine_matches_reference(ref):
-    """(b) a ``-1``-padded bucket, a commit out of dispatch order, a batch
-    merged from two draft groups and a retire mid-verify.  A padding row
-    sees no key: the reference's oracle gives page 0's mean there and the
-    port 0 (ROADMAP §C), so its draft is not compared; every commit's
-    counts, committed lists, ``pool_stats`` and page tables are exact."""
+def test_forced_barrier_continuous_engine_matches_reference(ref):
+    """(a) ``max_inflight=1, exact_shapes=True``: every tick commits the same
+    rows, counts and tokens as the reference's, with the same pages."""
+    _check_forced_barrier(ref, "eager")
+
+
+@pytest.mark.parametrize("compile_mode", ["jit", "jit+donate"])
+def test_compiled_forced_barrier_continuous_engine_matches_reference(
+        ref, compile_mode):
+    """(a) in a compiled mode, warmed at the assembler's bucket."""
+    _check_forced_barrier(ref, compile_mode)
+
+
+def _check_paced(ref, compile_mode):
     from repro_torch.serving.continuous import ContinuousEngine
 
-    eng = _port_engine(ref)
+    eng = _port_engine(ref, compile_mode)
     start, late = _prompts()
     st, rows = eng.add_streams(eng.start(torch.from_numpy(start)),
                                torch.from_numpy(late))
     assert rows == [3]
     cont = ContinuousEngine(eng, st, 5, draws=JaxKeyedDraws())
+    buckets = [(1, 4), (2, 4), (4, 4)]
+    cont.warmup([1, 2, 3, 4], [4])
+    assert eng.step_shapes == _warmed(eng, buckets)
     got = _paced_script(cont)
+    assert eng.step_shapes == _warmed(eng, buckets)
     assert len(got) == len(ref["paced"]) == 5
     for g, w in zip(got, ref["paced"]):
         assert g["rows"] == w["rows"]
@@ -641,8 +717,24 @@ def test_externally_paced_continuous_engine_matches_reference(ref):
         _assert_same_view(g, w)
     # the retired row committed nothing in the merged batch
     assert ref["paced"][3]["rows"] == [0, 1] and got[3]["accepted"][1] == 0
-    assert sorted(cont.assembler.shapes) == ref["paced_shapes"] \
-        == [(1, 4), (2, 4), (4, 4)]
+    assert sorted(cont.assembler.shapes) == ref["paced_shapes"] == buckets
+
+
+def test_externally_paced_continuous_engine_matches_reference(ref):
+    """(b) a ``-1``-padded bucket, a commit out of dispatch order, a batch
+    merged from two draft groups and a retire mid-verify.  A padding row
+    sees no key: the reference's oracle gives page 0's mean there and the
+    port 0 (ROADMAP §C), so its draft is not compared; every commit's
+    counts, committed lists, ``pool_stats`` and page tables are exact."""
+    _check_paced(ref, "eager")
+
+
+@pytest.mark.parametrize("compile_mode", ["jit", "jit+donate"])
+def test_compiled_externally_paced_continuous_engine_matches_reference(
+        ref, compile_mode):
+    """(b) in a compiled mode, warmed at the assembler's buckets: a retire
+    mid-verify and commits out of order over donated state."""
+    _check_paced(ref, compile_mode)
 
 
 @pytest.mark.parametrize("schedule", ["continuous", "pipelined"])
