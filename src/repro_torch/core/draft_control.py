@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.obs import trace
 from .bandwidth import solve_equalized_phi, solve_equalized_theta, uniform_bandwidth
 from .goodput import (
     expected_accepted_tokens,
@@ -140,24 +141,26 @@ def solve_heterogeneous(alphas, T_S, r, Q_tok, B, T_ver, L_max: int = 25,
     T_S = np.asarray(T_S, dtype=np.float64)
     r = np.asarray(r, dtype=np.float64)
 
-    phis, lams = search_grids(alphas, T_S, r, Q_tok, B, L_max, n_phi, n_lam)
-    PH, LM = np.meshgrid(phis, lams, indexing="ij")
-    grid = np.stack([PH.ravel(), LM.ravel()], axis=-1)  # (G, 2)
+    with trace.span("cell.plan_lengths", cat="cell"):
+        phis, lams = search_grids(alphas, T_S, r, Q_tok, B, L_max, n_phi, n_lam)
+        PH, LM = np.meshgrid(phis, lams, indexing="ij")
+        grid = np.stack([PH.ravel(), LM.ravel()], axis=-1)  # (G, 2)
 
-    # Proposition 1 lengths for every grid point: (G, K)
-    L_tilde = heterogeneous_lengths(grid[:, :1], grid[:, 1:2],
-                                    alphas[None, :], T_S[None, :], r[None, :], Q_tok)
-    L_int = round_lengths(np.nan_to_num(L_tilde, nan=1.0), L_max)
+        # Proposition 1 lengths for every grid point: (G, K)
+        L_tilde = heterogeneous_lengths(grid[:, :1], grid[:, 1:2],
+                                        alphas[None, :], T_S[None, :], r[None, :], Q_tok)
+        L_int = round_lengths(np.nan_to_num(L_tilde, nan=1.0), L_max)
 
-    # Lemma 3 re-equalization for the rounded integer lengths (Alg. 1, step 4).
-    phi_hat, B_of_L = solve_equalized_phi(L_int, T_S[None, :], r[None, :], Q_tok, B)
+    with trace.span("cell.plan_equalize", cat="cell"):
+        # Lemma 3 re-equalization for the rounded integer lengths (Alg. 1, step 4).
+        phi_hat, B_of_L = solve_equalized_phi(L_int, T_S[None, :], r[None, :], Q_tok, B)
 
-    tau = goodput_from_equalized_latency(alphas[None, :], L_int, phi_hat, T_ver)
-    tau = np.where(np.isfinite(tau), tau, -np.inf)
+        tau = goodput_from_equalized_latency(alphas[None, :], L_int, phi_hat, T_ver)
+        tau = np.where(np.isfinite(tau), tau, -np.inf)
 
-    best = int(np.argmax(tau))
-    L_best = L_int[best].astype(np.int64)
-    phi_best, B_best = solve_equalized_phi(L_best, T_S, r, Q_tok, B)
+        best = int(np.argmax(tau))
+        L_best = L_int[best].astype(np.int64)
+        phi_best, B_best = solve_equalized_phi(L_best, T_S, r, Q_tok, B)
     return DraftControlSolution(
         lengths=L_best,
         bandwidth=np.asarray(B_best),

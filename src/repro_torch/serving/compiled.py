@@ -69,6 +69,7 @@ from repro_torch.core.drafting import generate_drafts
 from repro_torch.core.verification import verify_drafts
 from repro_torch.kernels import build
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.obs import trace
 
 COMPILE_MODES = ("eager", "jit", "jit+donate")
 STEPS = ("draft", "verify", "commit")
@@ -163,7 +164,14 @@ class StepGraphs:
     ``captures[step]`` counts graphs captured, ``replays[step]`` graph
     launches: the kernels' launch counters (``kernels.ops``) tick in
     Python, once at the eager warm-up and once at capture, and never at a
-    replay."""
+    replay.
+
+    With a tracer installed each call is a span ``compiled.<step>`` (args
+    ``n``, ``L``) over the input copies, the replay and the output clones,
+    and each build a span ``compiled.capture``.  On a CUDA device a pair of
+    timing events brackets each traced replay on the current stream;
+    ``settle()`` sets ``device_ms`` on the spans whose replays have
+    finished."""
 
     def __init__(self, record: Callable[[tuple], None] | None):
         self.record = record
@@ -173,6 +181,7 @@ class StepGraphs:
         self._stream = None
         self._builds: dict = {}
         self._state: dict = {}
+        self._timed: list = []        # (span, start event, end event)
 
     def state_buffers(self, *state: torch.Tensor) -> tuple:
         """The donated state buffers of this shape, holding ``state``'s
@@ -204,23 +213,60 @@ class StepGraphs:
                            (tuple(a.shape), a.dtype, a.device) for a in args),
                tuple(sorted(static.items())))
         refs = _refs(fixed)
+        tracer = trace.active()
         b = self._builds.get(sig)
         if b is None or any(x is not y for x, y in zip(b.refs, refs)):
-            b = self._build(step, fn, fixed, refs, args, static, warm)
+            with (trace.NULL_SPAN if tracer is None else tracer.span(
+                    "compiled.capture", cat="compiled",
+                    args={"step": step, "n": shape[0], "L": shape[1]})):
+                b = self._build(step, fn, fixed, refs, args, static, warm)
             self._builds[sig] = b
             if self.record is not None:
                 self.record((step,) + tuple(shape))
         if not run:
             return None
+        if tracer is None:
+            return self._run(b, step, fn, fixed, refs, args, static, None)
+        with tracer.span("compiled." + step, cat="compiled",
+                         args={"n": shape[0], "L": shape[1]}) as sp:
+            return self._run(b, step, fn, fixed, refs, args, static, sp)
+
+    def _run(self, b: _Build, step, fn, fixed, refs, args, static, sp):
+        """One call through build ``b``: the step function itself without a
+        graph, else the input copies, the replay and the output clones.  A
+        traced replay (``sp``) on a CUDA device is bracketed by timing
+        events."""
         if b.graph is None:
             return fn(*fixed, *args, **static)
         for buf, a in zip(b.inputs, args):
             if a is not None:
                 buf.copy_(a)
-        b.graph.replay()
+        if sp is None:
+            b.graph.replay()
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            b.graph.replay()
+            end.record()
+            self._timed.append((sp, start, end))
         self.replays[step] += 1
         return tuple(o if any(o is r for r in refs) else o.clone()
                      for o in b.outputs)
+
+    def settle(self) -> None:
+        """Set ``device_ms`` on every traced replay's span whose end event
+        has run; the others (a continuous engine's tickets in flight) wait
+        for a later call.  ``query()`` never waits on the device."""
+        if not self._timed:
+            return
+        waiting = []
+        for sp, start, end in self._timed:
+            if end.query():
+                sp.set(device_ms=start.elapsed_time(end))
+            else:
+                waiting.append((sp, start, end))
+        self._timed = waiting
 
     def _build(self, step, fn, fixed, refs, args, static, warm) -> _Build:
         devices = {a.device for a in args if a is not None}

@@ -95,7 +95,8 @@ _FETCH_DTYPES = (torch.float32, torch.int64, torch.int32, torch.int16,
 
 
 def _span(name: str, args: dict | None = None):
-    """Engine-phase span (``cat="engine"``), once per round."""
+    """Engine-phase span (``cat="engine"``): the round's phases and the
+    parts of an admission."""
     if trace.active() is None:
         return trace.NULL_SPAN
     return trace.span(name, cat="engine", args=args)
@@ -224,6 +225,8 @@ class SpecEngine:
         # host-transfer accounting: every blocking device->host fetch on the
         # round path funnels through ``_host_fetch`` and bumps this
         self.host_syncs = 0
+        # the splice's blocking fetches of every admission (``add_streams``)
+        self.admit_syncs = 0
         # host-side accepted counts of the last commit
         self.last_accepted: np.ndarray | None = None
         self._tree_scratch = TreeScratch()
@@ -380,69 +383,108 @@ class SpecEngine:
         prompts = torch.as_tensor(prompts, device=self.device)
         n, M = prompts.shape
         Mb = self.prompt_bucket(M)
-        B = state.pending.shape[0]
-        rows = []
-        for _ in range(n):
-            row = self._free_rows.pop(0) if self._free_rows else B + len(
-                [r for r in rows if r >= B])
-            rows.append(row)
-        allocated = []
-        try:
-            for row in rows:
-                self.t_pages.alloc_stream(row, Mb - 1)
-                allocated.append((self.t_pages, row))
-                self.d_pages.alloc_stream(row, Mb - 1)
-                allocated.append((self.d_pages, row))
-        except Exception:
-            for mgr, row in allocated:
-                mgr.free_stream(row)
-            self._free_rows = sorted(set(self._free_rows)
-                                     | {r for r in rows if r < B})
-            raise
-        self._retired -= set(rows)
+        tracer = trace.active()
+        if tracer is None:
+            return self._admit(state, prompts, Mb, trace.NULL_SPAN)
+        syncs0 = self.admit_syncs
+        with tracer.span("engine.admit", cat="engine",
+                         args={"n": int(n), "M": int(M), "bucket": Mb}) as sp:
+            new_state, rows = self._admit(state, prompts, Mb, sp)
+            sp.set(rows=list(rows), syncs=self.admit_syncs - syncs0)
+        return new_state, rows
 
-        # prefill ONLY the new rows, right-padded to the bucket with the
-        # last prompt token: the pad K/V lands at positions >= M-1, which
-        # every later window write covers before attention can reach it
-        if Mb > M:
-            padded = torch.cat([prompts, prompts[:, -1:].repeat(1, Mb - M)],
-                               dim=1)
-        else:
-            padded = prompts
-        t_view = dict(self.t_cache, pages=self.t_pages.device_table(rows))
-        d_view = dict(self.d_cache, pages=self.d_pages.device_table(rows))
-        _, t_view, _ = self.target.prefill(self.t_params, padded[:, :-1],
-                                           t_view)
-        _, d_view, _ = self.draft.prefill(self.d_params, padded[:, :-1],
-                                          d_view)
-        self.t_cache = strip_view(t_view)
-        self.d_cache = strip_view(d_view)
-        if Mb > M:
-            for row in rows:
-                self.t_pages.truncate(row, M - 1)
-                self.d_pages.truncate(row, M - 1)
+    def _admit(self, state: StreamState, prompts: torch.Tensor, Mb: int,
+               sp) -> tuple[StreamState, list]:
+        """``add_streams``'s body in its three child spans: the pages, the
+        prefill, the splice.  ``sp`` is the ``engine.admit`` span (the null
+        span when no tracer is installed); on a CUDA device a traced
+        admission times both prefills with a pair of events and sets their
+        ``device_ms`` on it."""
+        n, M = prompts.shape
+        B = state.pending.shape[0]
+        with _span("engine.admit_pages"):
+            rows = []
+            for _ in range(n):
+                row = self._free_rows.pop(0) if self._free_rows else B + len(
+                    [r for r in rows if r >= B])
+                rows.append(row)
+            allocated = []
+            try:
+                for row in rows:
+                    self.t_pages.alloc_stream(row, Mb - 1)
+                    allocated.append((self.t_pages, row))
+                    self.d_pages.alloc_stream(row, Mb - 1)
+                    allocated.append((self.d_pages, row))
+            except Exception:
+                for mgr, row in allocated:
+                    mgr.free_stream(row)
+                self._free_rows = sorted(set(self._free_rows)
+                                         | {r for r in rows if r < B})
+                raise
+            self._retired -= set(rows)
+
+        events = None
+        with _span("engine.admit_prefill"):
+            # prefill ONLY the new rows, right-padded to the bucket with the
+            # last prompt token: the pad K/V lands at positions >= M-1, which
+            # every later window write covers before attention can reach it
+            if Mb > M:
+                padded = torch.cat([prompts,
+                                    prompts[:, -1:].repeat(1, Mb - M)], dim=1)
+            else:
+                padded = prompts
+            t_view = dict(self.t_cache, pages=self.t_pages.device_table(rows))
+            d_view = dict(self.d_cache, pages=self.d_pages.device_table(rows))
+            if sp is not trace.NULL_SPAN and self.device.type == "cuda":
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            _, t_view, _ = self.target.prefill(self.t_params, padded[:, :-1],
+                                               t_view)
+            _, d_view, _ = self.draft.prefill(self.d_params, padded[:, :-1],
+                                              d_view)
+            if events is not None:
+                events[1].record()
+            self.t_cache = strip_view(t_view)
+            self.d_cache = strip_view(d_view)
+            if Mb > M:
+                for row in rows:
+                    self.t_pages.truncate(row, M - 1)
+                    self.d_pages.truncate(row, M - 1)
 
         # splice the new rows into the batched state (admission-time host
         # copies, outside the round's one fetch)
-        n_grow = max(0, max(r + 1 for r in rows) - B) if rows else 0
-        pnp = prompts.cpu().numpy()
-        pending = np.concatenate([state.pending.cpu().numpy(),
-                                  np.zeros(n_grow, pnp.dtype)])
-        tpos = np.concatenate([state.target_pos.cpu().numpy(),
-                               np.zeros(n_grow, np.int32)])
-        dpos = np.concatenate([state.draft_pos.cpu().numpy(),
-                               np.zeros(n_grow, np.int32)])
-        committed = list(state.committed) + [None] * n_grow
-        for i, row in enumerate(rows):
-            pending[row] = pnp[i, -1]
-            tpos[row] = dpos[row] = M - 1
-            committed[row] = list(pnp[i])
-        new_state = StreamState(
-            pending=host_to_device(pending, self.device),
-            target_pos=host_to_device(tpos.astype(np.int32), self.device),
-            draft_pos=host_to_device(dpos.astype(np.int32), self.device),
-            committed=committed)
+        with _span("engine.admit_splice"):
+            n_grow = max(0, max(r + 1 for r in rows) - B) if rows else 0
+            pnp = self._admit_fetch(prompts)
+            if events is not None:
+                # the fetch drained the stream: both events have run
+                sp.set(device_ms=events[0].elapsed_time(events[1]))
+            pending = np.concatenate([self._admit_fetch(state.pending),
+                                      np.zeros(n_grow, pnp.dtype)])
+            tpos = np.concatenate([self._admit_fetch(state.target_pos),
+                                   np.zeros(n_grow, np.int32)])
+            dpos = np.concatenate([self._admit_fetch(state.draft_pos),
+                                   np.zeros(n_grow, np.int32)])
+            committed = list(state.committed) + [None] * n_grow
+            for i, row in enumerate(rows):
+                pending[row] = pnp[i, -1]
+                tpos[row] = dpos[row] = M - 1
+                committed[row] = list(pnp[i])
+            new_state = StreamState(
+                pending=host_to_device(pending, self.device),
+                target_pos=host_to_device(tpos.astype(np.int32), self.device),
+                draft_pos=host_to_device(dpos.astype(np.int32), self.device),
+                committed=committed)
         return new_state, rows
+
+    def _admit_fetch(self, value: torch.Tensor) -> np.ndarray:
+        """Blocking device->host copy of an admission's splice, counted in
+        ``admit_syncs`` and the tracer counter ``engine.admit_sync``, apart
+        from the round path's ``host_syncs``."""
+        self.admit_syncs += 1
+        trace.incr("engine.admit_sync")
+        return value.cpu().numpy()
 
     def retire_stream(self, row: int) -> None:
         """Return every page of ``row`` to the pool and recycle the batch
@@ -452,11 +494,14 @@ class SpecEngine:
             raise RuntimeError("contiguous engines cannot retire streams")
         if row in self._retired:
             return
-        self.t_pages.free_stream(row)
-        self.d_pages.free_stream(row)
-        self._retired.add(row)
-        self._free_rows.append(row)
-        self._free_rows.sort()
+        tracer = trace.active()
+        with (trace.NULL_SPAN if tracer is None else
+              tracer.span("engine.retire", cat="engine", args={"row": row})):
+            self.t_pages.free_stream(row)
+            self.d_pages.free_stream(row)
+            self._retired.add(row)
+            self._free_rows.append(row)
+            self._free_rows.sort()
 
     def _grow_pages(self, state: StreamState, rows, frz: np.ndarray,
                     t_len: int, d_len: int) -> None:
@@ -724,6 +769,9 @@ class SpecEngine:
                 state.pending, state.target_pos, state.draft_pos, rows_dev,
                 skip_dev, res.output_tokens, res.accept_counts)
             pack = self._host_fetch(emission)    # the ONE host sync
+            if self._steps.graphs is not None:
+                # the fetch drained the stream: time the steps' replays
+                self._steps.graphs.settle()
             accepted = pack[:, 0].astype(np.int64)
             with _span("engine.page_free", {"B": n}):
                 for i, b in enumerate(row_list):

@@ -3,9 +3,11 @@
 The jax-free modules the cell needs are copied into ``repro_torch`` rather
 than imported from ``repro``.  Each copy must equal its original line for
 line once import lines are dropped (``repro.`` -> ``repro_torch.`` is the
-only edit there).  The one exception is ``obs/trace.py``'s device-sync hunk,
+only edit there).  Two exceptions: ``obs/trace.py``'s device-sync hunk,
 where ``jax.block_until_ready`` becomes ``torch.cuda.synchronize``, skipped
-while a CUDA graph is being captured (a capture may not synchronize).
+while a CUDA graph is being captured (a capture may not synchronize); and
+the port's planner spans in ``core/draft_control.py``, ``with trace.span``
+blocks whose bodies, dedented, are the reference's lines.
 """
 
 import importlib
@@ -47,8 +49,29 @@ TRACE_HUNK = (
 )
 
 
+# copies whose only other edit is ``with trace.span(...)`` blocks
+SPANNED = {"core/draft_control.py"}
+_SPAN = re.compile(r'^(\s*)with trace\.span\("[\w.]+", cat="\w+"\):$')
+
+
 def _body(path: Path) -> list[str]:
     return [ln for ln in path.read_text().splitlines() if not _IMPORT.match(ln)]
+
+
+def _unspan(lines: list[str]) -> list[str]:
+    """``lines`` with every ``with trace.span(...):`` line dropped and its
+    block dedented by one level."""
+    out, opened = [], []          # indents of the open span blocks
+    for ln in lines:
+        indent = len(ln) - len(ln.lstrip())
+        while opened and ln.strip() and indent <= opened[-1]:
+            opened.pop()
+        m = _SPAN.match(ln)
+        if m:
+            opened.append(len(m.group(1)))
+            continue
+        out.append(ln[4 * len(opened):] if ln.strip() else ln)
+    return out
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -58,6 +81,8 @@ def test_copied_module_matches_reference(rel):
         old, new = TRACE_HUNK
         i = next(k for k in range(len(port)) if port[k:k + len(new)] == new)
         port = port[:i] + old + port[i + len(new):]
+    if rel in SPANNED:
+        port = _unspan(port)
     assert port == ref, f"{rel} drifted from src/repro/{rel}"
 
 
