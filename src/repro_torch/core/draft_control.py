@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core import hete_solve
 from repro_torch.obs import trace
 from .bandwidth import solve_equalized_phi, solve_equalized_theta, uniform_bandwidth
 from .goodput import (
@@ -135,36 +136,44 @@ def solve_heterogeneous(alphas, T_S, r, Q_tok, B, T_ver, L_max: int = 25,
 
     Vectorized over the whole grid: for every candidate pair we compute the
     Proposition-1 lengths, re-equalize phi via Lemma 3 (eq. 28 root), and
-    evaluate the eq. 29 goodput; the best feasible candidate wins.
+    evaluate the eq. 29 goodput; the best feasible candidate wins.  The port
+    runs the inner steps through ``hete_solve``: W0 stops each element at
+    convergence, and Lemma 3 is solved once per distinct length vector, with
+    the reference's choice, bandwidth and latency, bit for bit.
     """
     alphas = np.asarray(alphas, dtype=np.float64)
     T_S = np.asarray(T_S, dtype=np.float64)
     r = np.asarray(r, dtype=np.float64)
 
-    with trace.span("cell.plan_lengths", cat="cell"):
+    with trace.span("cell.plan_lengths", cat="cell") as sp:
         phis, lams = search_grids(alphas, T_S, r, Q_tok, B, L_max, n_phi, n_lam)
         PH, LM = np.meshgrid(phis, lams, indexing="ij")
         grid = np.stack([PH.ravel(), LM.ravel()], axis=-1)  # (G, 2)
 
         # Proposition 1 lengths for every grid point: (G, K)
-        L_tilde = heterogeneous_lengths(grid[:, :1], grid[:, 1:2],
-                                        alphas[None, :], T_S[None, :], r[None, :], Q_tok)
+        L_tilde, iters = hete_solve.proposition1_lengths(
+            grid[:, :1], grid[:, 1:2], alphas[None, :], T_S[None, :],
+            r[None, :], Q_tok)
         L_int = round_lengths(np.nan_to_num(L_tilde, nan=1.0), L_max)
+        sp.set(iters=iters)
 
-    with trace.span("cell.plan_equalize", cat="cell"):
-        # Lemma 3 re-equalization for the rounded integer lengths (Alg. 1, step 4).
-        phi_hat, B_of_L = solve_equalized_phi(L_int, T_S[None, :], r[None, :], Q_tok, B)
-
-        tau = goodput_from_equalized_latency(alphas[None, :], L_int, phi_hat, T_ver)
-        tau = np.where(np.isfinite(tau), tau, -np.inf)
-
-        best = int(np.argmax(tau))
+    with trace.span("cell.plan_equalize", cat="cell") as sp:
+        # Lemma 3 re-equalization, eq. 29 goodput and argmax (Alg. 1, step 4)
+        best, root, rows = hete_solve.best_grid_point(
+            alphas, L_int, T_S, r, Q_tok, B, T_ver, L_max)
         L_best = L_int[best].astype(np.int64)
-        phi_best, B_best = solve_equalized_phi(L_best, T_S, r, Q_tok, B)
+        if 0.0 < root < np.inf:
+            phi_best, B_best = hete_solve.equalized_phi(L_best, T_S, r, Q_tok,
+                                                        B, root)
+        else:               # no root to replay the halvings against
+            phi_best, B_best = solve_equalized_phi(L_best, T_S, r, Q_tok, B)
+        tau = float(goodput_from_equalized_latency(alphas, L_best, phi_best,
+                                                   T_ver))
+        sp.set(grid=len(L_int), rows=rows)
     return DraftControlSolution(
         lengths=L_best,
         bandwidth=np.asarray(B_best),
-        goodput=float(tau[best]),
+        goodput=tau if np.isfinite(tau) else -np.inf,
         equalized_latency=float(phi_best),
         meta={"phi_grid": phis, "lam_grid": lams, "grid_best": grid[best],
               "scheme": "hete-multi-spin"},

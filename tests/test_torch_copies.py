@@ -6,8 +6,10 @@ line once import lines are dropped (``repro.`` -> ``repro_torch.`` is the
 only edit there).  Two exceptions: ``obs/trace.py``'s device-sync hunk,
 where ``jax.block_until_ready`` becomes ``torch.cuda.synchronize``, skipped
 while a CUDA graph is being captured (a capture may not synchronize); and
-the port's planner spans in ``core/draft_control.py``, ``with trace.span``
-blocks whose bodies, dedented, are the reference's lines.
+the body of ``solve_heterogeneous`` in ``core/draft_control.py``, which runs
+the port's own inner steps (``core/hete_solve.py``) inside its planner
+spans.  ``tests/test_torch_plan.py`` holds that body's outputs to the
+reference's.
 """
 
 import importlib
@@ -49,29 +51,24 @@ TRACE_HUNK = (
 )
 
 
-# copies whose only other edit is ``with trace.span(...)`` blocks
-SPANNED = {"core/draft_control.py"}
-_SPAN = re.compile(r'^(\s*)with trace\.span\("[\w.]+", cat="\w+"\):$')
+# copies whose only other edit is the body of one function
+OWN_BODY = {"core/draft_control.py": "solve_heterogeneous"}
 
 
 def _body(path: Path) -> list[str]:
     return [ln for ln in path.read_text().splitlines() if not _IMPORT.match(ln)]
 
 
-def _unspan(lines: list[str]) -> list[str]:
-    """``lines`` with every ``with trace.span(...):`` line dropped and its
-    block dedented by one level."""
-    out, opened = [], []          # indents of the open span blocks
-    for ln in lines:
-        indent = len(ln) - len(ln.lstrip())
-        while opened and ln.strip() and indent <= opened[-1]:
-            opened.pop()
-        m = _SPAN.match(ln)
-        if m:
-            opened.append(len(m.group(1)))
-            continue
-        out.append(ln[4 * len(opened):] if ln.strip() else ln)
-    return out
+def _drop_body(lines: list[str], fn: str) -> list[str]:
+    """``lines`` without the body of the top-level function ``fn``: its
+    ``def`` lines stay, the block after them goes."""
+    i = next(k for k, ln in enumerate(lines) if ln.startswith(f"def {fn}("))
+    while not lines[i].rstrip().endswith(":"):
+        i += 1
+    j = i + 1
+    while j < len(lines) and (not lines[j].strip() or lines[j][0].isspace()):
+        j += 1
+    return lines[:i + 1] + lines[j:]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -81,8 +78,9 @@ def test_copied_module_matches_reference(rel):
         old, new = TRACE_HUNK
         i = next(k for k in range(len(port)) if port[k:k + len(new)] == new)
         port = port[:i] + old + port[i + len(new):]
-    if rel in SPANNED:
-        port = _unspan(port)
+    if rel in OWN_BODY:
+        ref, port = (_drop_body(ref, OWN_BODY[rel]),
+                     _drop_body(port, OWN_BODY[rel]))
     assert port == ref, f"{rel} drifted from src/repro/{rel}"
 
 

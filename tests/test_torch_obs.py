@@ -210,8 +210,11 @@ def test_planner_phases_leave_the_plan_bit_for_bit(K):
     plain = solve_heterogeneous(*args, L_max=8)
     with trace.tracing() as tracer:
         traced = solve_heterogeneous(*args, L_max=8)
-    assert [sp.name for sp in tracer.snapshot()] == ["cell.plan_lengths",
-                                                     "cell.plan_equalize"]
+    lengths, equalize = tracer.snapshot()
+    assert (lengths.name, equalize.name) == ("cell.plan_lengths",
+                                             "cell.plan_equalize")
+    assert lengths.args["iters"] >= 1
+    assert 1 <= equalize.args["rows"] <= equalize.args["grid"] == 40 * 40
     assert np.array_equal(plain.lengths, traced.lengths)
     assert np.array_equal(plain.bandwidth, traced.bandwidth)
     assert (plain.goodput, plain.equalized_latency) == (
@@ -251,6 +254,9 @@ SPANS = [
     _sp("compiled.commit", 0.25, n=24, L=7, device_ms=0.25),
     _sp("compiled.capture", 900.0, step="draft", n=24, L=6),
     _sp("engine.draft", 60.0, B=24, L=8),
+    _sp("cell.plan_equalize", 3.0, grid=1600, rows=400),
+    _sp("cell.plan_equalize", 2.0, grid=1600, rows=480),
+    _sp("cell.plan_equalize", 9.0),                 # a planner without args
 ]
 
 
@@ -261,10 +267,12 @@ SPANS = [
     ("compiled.verify_device_ms", 11.0),
     ("compiled.commit_device_ms", 0.375),
     ("compiled.replay_ms", 4.25),
+    ("cell.plan_rows", 27.5),
 ])
 def test_reader_of_the_new_spans(name, want):
     """Per admission, the mean over the admissions that carry the arg; per
-    round, the sum over the window's two rounds."""
+    round, the sum over the window's two rounds; per plan, the mean share
+    of the plans that carry it."""
     ctx = {"spans": SPANS, "records": [object(), object()]}
     assert _reader(name)(ctx) == pytest.approx(want, rel=1e-12)
 
@@ -272,14 +280,14 @@ def test_reader_of_the_new_spans(name, want):
 @pytest.mark.parametrize("name", [
     "engine.admit_device_ms", "engine.admit_syncs",
     "compiled.draft_device_ms", "compiled.verify_device_ms",
-    "compiled.commit_device_ms", "compiled.replay_ms"])
+    "compiled.commit_device_ms", "compiled.replay_ms", "cell.plan_rows"])
 @pytest.mark.parametrize("spans", ["none", "without_args"])
 def test_reader_finds_nothing(name, spans):
     """A program without these spans (or, on the CPU, without events)
     reads None, and nothing raises."""
     have = [] if spans == "none" else [
         _sp("engine.admit", 1.0), _sp("engine.draft", 1.0),
-        _sp("engine.verify_step", 1.0)]
+        _sp("engine.verify_step", 1.0), _sp("cell.plan_equalize", 1.0)]
     ctx = {"spans": have, "records": [object()]}
     assert _reader(name)(ctx) is None
 
