@@ -62,7 +62,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     gc.freeze()
     setup_s = time.perf_counter() - t_proc0
-    ctx = {"setup_s": setup_s, "models": (run.tm, run.dm), "peaks": peaks}
+    ctx = {"setup_s": setup_s, "models": (run.target, run.draft),
+           "peaks": peaks}
     if not trace:
         ctx["window"] = run.window(seconds, max_rounds)
     else:
@@ -86,7 +87,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     ctx["peak_bytes"] = peak
     win = ctx["window"]
     mat = check.gather(run, spec["traffic"]["check"])
-    tm, dm, raw_t, raw_d = run.tm, run.dm, run.raw_t, run.raw_d
+    target, draft, raw_t, raw_d = run.target, run.draft, run.raw_t, run.raw_d
     captures = win["captures"]
     del run
     gc.unfreeze()
@@ -94,7 +95,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     if cuda:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    read = check.readings(mat, tm, dm, raw_t, raw_d, device, control=control)
+    read = check.readings(mat, target, draft, raw_t, raw_d, device,
+                          control=control)
     check_s = time.perf_counter() - t_check
     correct, table = check.judge(read, spec["limits"])
     metrics = {}

@@ -5,8 +5,9 @@ plain reference once the window has closed.
 a sample of requests drawn from the seed (the longest greedy request and
 the longest sampled one among them), the accepted counts of every round,
 and the page pools after every stream has been retired.  The program is
-then freed, and ``readings`` runs the reference (``reference/qwen2.py``) over
-each sampled prompt with its served tokens:
+then freed, and ``readings`` runs the reference (each model's
+architecture's ``Reference``, ``perfbench/arch/``) over each sampled prompt
+with its served tokens:
 
 * ``gap_draft``: the widest gap by which a greedy request's draft token
   lies below the reference draft's best logit (the draft steps: logits,
@@ -36,7 +37,6 @@ import numpy as np
 import torch
 
 from perfbench.reference import accept
-from perfbench.reference.qwen2 import Qwen2
 
 from .seeds import derive
 
@@ -120,9 +120,10 @@ def _positions(s: Served):
     return draft_pos, bonus_pos, resid
 
 
-def readings(mat: dict, tm, dm, raw_t, raw_d, device,
+def readings(mat: dict, target, draft, raw_t, raw_d, device,
              control: bool = False) -> dict:
-    """The program's readings (and the control's, with ``control``)."""
+    """The program's readings (and the control's, with ``control``);
+    ``target`` and ``draft`` are ``Model``s of ``lib/config.py``."""
     served = mat["served"]
     seqs = [s.prompt + s.tokens for s in served]
     plans = [_positions(s) for s in served]
@@ -130,18 +131,19 @@ def readings(mat: dict, tm, dm, raw_t, raw_d, device,
            "pages_leaked": float(mat["pages_leaked"])}
     ctl = {}
 
+    def logits(model, raw, want, fp8):
+        keep = [i for i, w in enumerate(want) if w]
+        ref = model.arch.Reference(model.dims, raw, device, fp8=fp8)
+        return dict(zip(keep, ref.logits_at(
+            [seqs[i][:-1] for i in keep], [want[i] for i in keep])))
+
     def run_models(fp8):
         t_want = [sorted({p for p, _ in b} | {p for p, _, _ in r})
                   for _, b, r in plans]
         d_want = [sorted({p for p, _ in d} | {p for p, _, _ in r})
                   for d, _, r in plans]
-        keep_t = [i for i, w in enumerate(t_want) if w]
-        keep_d = [i for i, w in enumerate(d_want) if w]
-        t_log = dict(zip(keep_t, Qwen2(tm, raw_t, device, fp8=fp8).logits_at(
-            [seqs[i][:-1] for i in keep_t], [t_want[i] for i in keep_t])))
-        d_log = dict(zip(keep_d, Qwen2(dm, raw_d, device, fp8=fp8).logits_at(
-            [seqs[i][:-1] for i in keep_d], [d_want[i] for i in keep_d])))
-        return t_want, d_want, t_log, d_log
+        return (t_want, d_want, logits(target, raw_t, t_want, fp8),
+                logits(draft, raw_d, d_want, fp8))
 
     ref = run_models(False)
     alt = run_models(True) if control else None

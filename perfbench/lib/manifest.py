@@ -3,7 +3,10 @@
 A cell is a ``workloads`` entry: its configuration's file (``configs[].file``),
 its traffic mix (``perfbench/traffic/<traffic>.json``), its limits
 (``perfbench/limits/<cell>.json``), and the metrics it reports, each read
-by ``perfbench/metrics/<metric>.py``.  Adding a configuration, a mix, a
+by ``perfbench/metrics/<metric>.py``.  Each model of a configuration is
+served and judged through the module of its published ``architectures``
+name, ``perfbench/arch/<name lowercased>.py`` (``lib/config.py`` says what
+the module provides).  Adding a configuration, an architecture, a mix, a
 cell or a metric adds files and entries; no code changes.
 """
 
@@ -11,6 +14,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent.parent
@@ -47,12 +51,18 @@ def cell(manifest: dict, name: str, root: Path = ROOT) -> dict:
     }
 
 
+def load_module(path: Path, name: str):
+    """The module in the file ``path``, imported under ``name`` (in
+    ``sys.modules`` while it runs, as dataclasses need)."""
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str):
     """The ``read(ctx)`` of ``perfbench/metrics/<metric>.py``."""
-    path = BENCH / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(BENCH / "metrics" / f"{metric}.py",
+                       "perfbench_metric_" + metric).read

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import weights
-from .config import models, port_config
+from .config import models
 from .seeds import derive
 from .traffic import Traffic
 
@@ -116,7 +116,7 @@ class CellRun:
         self.device = torch.device(device)
         self.cache_dir = cache_dir
         self.dep = cfg["deployment"]
-        self.tm, self.dm = models(cfg)
+        self.target, self.draft = models(cfg)
         self.reqs: dict[int, Tracked] = {}
         self.greedy_active: set[int] = set()
         self.admits: list[tuple[int, int, float]] = []
@@ -167,17 +167,18 @@ class CellRun:
                                token_limit=self.cfg["assumed"]["token_id_limit"],
                                max_len=mix["max_len"])
         K, max_len, ps = self.traffic.K, int(mix["max_len"]), int(dep["page_size"])
-        self.raw_t = weights.make(self.tm, self.seed, "target", dev)
-        self.raw_d = weights.make(self.dm, self.seed, "draft", dev)
+        (at, tm), (ad, dm) = self.target, self.draft
+        self.raw_t = weights.make(self.target, self.seed, "target", dev)
+        self.raw_d = weights.make(self.draft, self.seed, "draft", dev)
         self.num_pages = K * math.ceil(max_len / ps)
-        engine = SpecEngine(port_config(self.tm), port_config(self.dm),
+        engine = SpecEngine(at.port_config(tm), ad.port_config(dm),
                             max_len=max_len, cache_dtype=torch.bfloat16,
                             cache_kind="paged", page_size=ps,
                             num_pages=self.num_pages,
                             compile_mode=dep["compile_mode"],
                             compile_cache=self.cache_dir, device=dev)
-        engine.t_params = weights.port_tree(self.tm, self.raw_t)
-        engine.d_params = weights.port_tree(self.dm, self.raw_d)
+        engine.t_params = at.port_tree(tm, self.raw_t)
+        engine.d_params = ad.port_tree(dm, self.raw_d)
         self.engine = engine
         first = self.traffic.initial()
         # the first request's stream: the start row its admission binds to

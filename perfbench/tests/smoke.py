@@ -21,13 +21,12 @@ def spec(limits: bool = True) -> dict:
             "limits": (json.loads((DATA / "smoke_limits.json").read_text())
                        ["limits"] if limits else None),
             "end_to_end": [{"name": n, "unit": "x"} for n in
-                           ("goodput_tok_s", "round_p95_ms", "ttft_p95_ms",
-                            "setup_s")],
+                           ("goodput_tok_s", "round_p95_ms", "setup_s")],
             "per_layer": [{"name": n, "unit": "x"} for n in
                           ("cell.plan_ms", "cell.draft_len",
                            "backend.host_syncs", "engine.draft_ms",
                            "engine.verify_ms", "engine.admit_ms",
-                           "compiled.replays")]}
+                           "compiled.replays", "cell.ttft_p95_ms")]}
 
 
 def run(seed: int = 1002, rounds: int = 60, trace: bool = False,

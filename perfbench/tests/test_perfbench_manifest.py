@@ -1,7 +1,7 @@
 """``BENCHMARK.json`` against the benchmark's contract and its own files:
 keys, name and unit characters, bounds, each per-layer metric's ``moves``
 reported by every cell it lists, every configuration used by a cell, and
-every file a name points at present."""
+every file a name points at present, an architecture's module included."""
 
 import json
 import math
@@ -101,6 +101,15 @@ def test_every_configuration_keeps_a_cell_and_its_file():
         for key in cfg["reduced"]:
             assert not key.endswith(("_dim", "_rank", "_size")) or \
                 key == "vocab_size", key
+
+
+@pytest.mark.parametrize("config", [c["file"] for c in M["configs"]])
+def test_every_model_names_an_architecture_with_a_module(config):
+    cfg = json.loads((ROOT / config).read_text())
+    for section in (cfg, cfg["draft"]):
+        names = section["architectures"]
+        assert names and (BENCH / "arch"
+                          / f"{names[0].lower()}.py").is_file(), names
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))

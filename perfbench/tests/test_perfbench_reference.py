@@ -12,19 +12,19 @@ import torch
 
 import smoke
 from perfbench.lib import weights
-from perfbench.lib.config import models, port_config
+from perfbench.lib.config import models
 from perfbench.reference import accept
-from perfbench.reference.qwen2 import Qwen2
 
 CFG = json.loads((smoke.DATA / "smoke_config.json").read_text())
 
 
 def _pair(seed=5):
-    tm, dm = models(CFG)
+    """``(arch, dims, raw)`` of the smoke pair's target and draft, each
+    through its architecture's module."""
     out = []
-    for m, role in ((tm, "target"), (dm, "draft")):
-        raw = weights.make(m, seed, role, "cpu", dtype=torch.float32)
-        out.append((m, raw))
+    for model, role in zip(models(CFG), ("target", "draft")):
+        raw = weights.make(model, seed, role, "cpu", dtype=torch.float32)
+        out.append((*model, raw))
     return out
 
 
@@ -32,35 +32,37 @@ def _pair(seed=5):
 def test_reference_matches_the_ports_forward(role):
     from repro_torch.models.transformer import DecoderLM
 
-    m, raw = _pair()[role]
-    model = DecoderLM(port_config(m, "float32"), device="cpu")
-    params = weights.port_tree(m, raw)
+    arch, m, raw = _pair()[role]
+    model = DecoderLM(arch.port_config(m, "float32"), device="cpu")
+    params = arch.port_tree(m, raw)
     seq = np.random.default_rng(1).integers(0, 500, 40).tolist()
     port, _ = model.apply(params, torch.tensor([seq]))
-    ref = Qwen2(m, raw, "cpu").logits_at([seq], [list(range(40))])[0]
+    ref = arch.Reference(m, raw, "cpu").logits_at([seq], [list(range(40))])[0]
     torch.testing.assert_close(ref, port[0], rtol=1e-4, atol=1e-4)
 
 
 def test_reference_matches_prefill_then_window():
     from repro_torch.models.transformer import DecoderLM
 
-    m, raw = _pair()[0]
-    model = DecoderLM(port_config(m, "float32"), device="cpu")
-    params = weights.port_tree(m, raw)
+    arch, m, raw = _pair()[0]
+    model = DecoderLM(arch.port_config(m, "float32"), device="cpu")
+    params = arch.port_tree(m, raw)
     seq = np.random.default_rng(2).integers(0, 500, 30).tolist()
     cache = model.init_cache(1, 64, torch.float32)
     _, cache, _ = model.prefill(params, torch.tensor([seq[:24]]), cache)
     win, _ = model.forward_window(params, torch.tensor([seq[24:]]), cache,
                                   torch.tensor([24]))
-    ref = Qwen2(m, raw, "cpu").logits_at([seq], [list(range(24, 30))])[0]
+    ref = arch.Reference(m, raw, "cpu").logits_at(
+        [seq], [list(range(24, 30))])[0]
     torch.testing.assert_close(ref, win[0], rtol=1e-4, atol=1e-4)
 
 
 def test_control_moves_the_logits():
-    m, raw = _pair()[0]
+    arch, m, raw = _pair()[0]
     seq = list(range(1, 33))
-    a = Qwen2(m, raw, "cpu").logits_at([seq], [list(range(32))])[0]
-    b = Qwen2(m, raw, "cpu", fp8=True).logits_at([seq], [list(range(32))])[0]
+    pos = [list(range(32))]
+    a = arch.Reference(m, raw, "cpu").logits_at([seq], pos)[0]
+    b = arch.Reference(m, raw, "cpu", fp8=True).logits_at([seq], pos)[0]
     assert 1e-4 < float((a - b).abs().max()) < 1.0
 
 
