@@ -397,40 +397,44 @@ def check_kernels(torch, cases, pa, fvs):
     """Phase 3: each kernel against its plain version; returns records."""
     paged = []
     all_cases = ([(name, shape, {}) for name, shape in PAGED_CASES]
-                 + cases.PAGED_EDGE_CASES)
+                 + cases.PAGED_EDGE_CASES + cases.PAGED_WINDOW_CASES)
     for name, shape, extra in all_cases:
+        w = {"window": extra.get("window", 0)}
         for dtype in (torch.float32, torch.bfloat16):
             args = cases.paged_case(*shape, dtype=dtype, device="cuda", **extra)
             B, T, H, D = args[0].shape
             P, ps, KV, _ = args[1].shape
-            plan = (pa.split_plan(B, KV, T * (H // KV), args[3].shape[1], ps,
-                                  pa.sm_count(args[0].device))
+            rows = T * (H // KV)
+            plan = (pa.split_plan(B, KV, rows, pa.window_slots(
+                        args[3].shape[1], ps, w["window"], T,
+                        16 if rows <= 16 else 64), ps,
+                        pa.sm_count(args[0].device))
                     if dtype == torch.bfloat16 else None)
-            got = pa.paged_attention_cuda(*args).float()
-            want = cases.paged_attention_held(*args)
-            plain = pa.paged_attention_plain(*args).float()
+            got = pa.paged_attention_cuda(*args, **w).float()
+            want = cases.paged_attention_held(*args, **w)
+            plain = pa.paged_attention_plain(*args, **w).float()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             err_plain = float((got - plain).abs().max())
             rtol, atol = cases.PAGED_TOL[dtype]
             close = torch.allclose(got, want, rtol=rtol, atol=atol)
-            n_bytes, n_ops = cases.paged_work(*args)
+            n_bytes, n_ops = cases.paged_work(*args, **w)
             bound_ms, bound_by = cases.bound(n_bytes, n_ops, dtype)
-            sq, sk, sv, smask = cases.paged_sdpa_inputs(*args)
+            sq, sk, sv, smask = cases.paged_sdpa_inputs(*args, **w)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             rec = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""),
                 "shape": dict(zip("B T H KV D ps ctx".split(), shape),
                               n_slots=args[3].shape[1],
-                              lengths=args[4].tolist()),
+                              lengths=args[4].tolist(), **w),
                 "split_plan": (dict(zip(("row_tile", "row_tiles", "n_split",
                                          "split_slots"), plan))
                                if plan else None),
                 "max_abs_err": err, "rtol": rtol, "atol": atol,
                 "max_abs_err_vs_plain_same_dtype": err_plain,
-                "ms": cases.time_ms(lambda: pa.paged_attention_cuda(*args)),
-                "plain_ms": cases.time_ms(lambda: pa.paged_attention_plain(*args),
-                                          iters=10),
+                "ms": cases.time_ms(lambda: pa.paged_attention_cuda(*args, **w)),
+                "plain_ms": cases.time_ms(
+                    lambda: pa.paged_attention_plain(*args, **w), iters=10),
                 "library_ms": cases.time_ms(lambda: sdpa(sq, sk, sv,
                                                          attn_mask=smask)),
                 "bound_ms": bound_ms, "bound_by": bound_by,

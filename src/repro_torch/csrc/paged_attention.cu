@@ -5,6 +5,10 @@
 // of a T-row query window through a page table; row t of batch b attends
 // logical positions [0, lengths[b] + t); unmapped (-1) slots and slots past
 // the tile's horizon are skipped whole; a row that sees no key returns 0.
+// With ``window`` > 0 (a sliding-window layer) row t attends only the last
+// ``window`` of them, [lengths[b] + t - window, lengths[b] + t): the walk
+// starts at the slot of the tile's lowest visible key, so slots wholly below
+// every row's window are never read and may be -1 (the engine frees them).
 //
 // Bound on the H100: bytes.  Every visible K/V page is read once per kv head
 // and each byte feeds 2*T*G multiply-adds (T*G <= 16 query rows per tile on
@@ -55,7 +59,8 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,
                                        const int* __restrict__ page_table,
                                        const int* __restrict__ lengths,
                                        T* __restrict__ out, int n_t, int H,
-                                       int KV, int ps, int n_slots, float scale) {
+                                       int KV, int ps, int n_slots, int window,
+                                       float scale) {
   constexpr int DPL = D / 16;  // output dims per lane (16 lanes per row)
   extern __shared__ float smem[];
   const int rows_per_block = blockDim.x / 16;
@@ -78,6 +83,9 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,
   const int horizon = base + t;              // this row attends kpos < horizon
   const int r_last = min(r0 + rows_per_block, R) - 1;
   const int tile_horizon = base + r_last / G;  // the tile's last row sees most
+  // the tile's first row sees the lowest key (0 without a window)
+  const int tile_floor = window > 0 ? max(0, base + r0 / G - window) : 0;
+  const int lo = window > 0 ? horizon - window : 0;
 
   for (int i = threadIdx.x; i < rows_per_block * D; i += blockDim.x) {
     const int rr = r0 + i / D;
@@ -98,7 +106,8 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,
 
   for (int s = 0; s < n_slots; ++s) {
     const int page = page_table[b * n_slots + s];
-    if (page < 0 || s * ps >= tile_horizon) continue;  // uniform over the block
+    if (page < 0 || s * ps >= tile_horizon || (s + 1) * ps <= tile_floor)
+      continue;  // uniform over the block
     __syncthreads();  // the previous page (and the q tile) are fully staged/consumed
     for (int i = threadIdx.x; i < ps * D; i += blockDim.x) {
       const int j = i / D, d = i % D;
@@ -109,7 +118,8 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,
     __syncthreads();
     for (int c = 0; c < ps; c += 16) {
       const int j = c + l16;
-      const bool valid = row_ok && j < ps && (s * ps + j) < horizon;
+      const bool valid =
+          row_ok && j < ps && (s * ps + j) < horizon && (s * ps + j) >= lo;
       float sc = -INFINITY;
       if (valid) {
         const float* krow = k_s + j * (D + 1);
@@ -154,8 +164,8 @@ __global__ void paged_attention_kernel(const T* __restrict__ q,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* page_table, const int* lengths, void* out, int B,
-                   int n_t, int H, int KV, int ps, int n_slots, float scale,
-                   cudaStream_t stream) {
+                   int n_t, int H, int KV, int ps, int n_slots, int window,
+                   float scale, cudaStream_t stream) {
   const int R = n_t * (H / KV);
   const int warps = (R + 1) / 2 < 8 ? (R + 1) / 2 : 8;
   const int rows_per_block = 2 * warps;
@@ -176,7 +186,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   paged_attention_kernel<T, D><<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), page_table, lengths, static_cast<T*>(out),
-      n_t, H, KV, ps, n_slots, scale);
+      n_t, H, KV, ps, n_slots, window, scale);
   return cudaGetLastError();
 }
 
@@ -184,9 +194,11 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 // q (B, T, H, D); pools (P, ps, KV, D); page_table (B, n_slots) int32;
 // lengths (B,) int32; out (B, T, H, D).  All contiguous, q/pools/out of one
-// dtype: 0 = float32, 1 = bfloat16, the bfloat16 ones 16-byte aligned.  For
+// dtype: 0 = float32, 1 = bfloat16, the bfloat16 ones 16-byte aligned.
+// ``window`` > 0: each row sees only its last ``window`` keys.  For
 // bfloat16, ``row_tile`` (16 or 64), ``n_split`` and ``split_slots`` come from
-// the host's split plan; with n_split > 1, ``part`` holds
+// the host's split plan (a window's: slots counted from the tile's lowest
+// key); with n_split > 1, ``part`` holds
 // B * KV * row_tiles * n_split * row_tile * (D + 2) floats and ``tickets``
 // B * KV * row_tiles zeros (left zero by the kernel).  float32 ignores all
 // five.  Returns the cudaError_t of the launch.
@@ -196,7 +208,8 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       void* tickets, int B, int n_t, int H,
                                       int KV, int D, int ps, int n_slots,
                                       int row_tile, int n_split, int split_slots,
-                                      int dtype, float scale, void* stream) {
+                                      int window, int dtype, float scale,
+                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pt = static_cast<const int*>(page_table);
   const int* ln = static_cast<const int*>(lengths);
@@ -204,16 +217,22 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
   int* tk = static_cast<int*>(tickets);
   if (dtype == 0) {
     switch (D) {
-      case 16: return static_cast<int>(launch<float, 16>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
-      case 32: return static_cast<int>(launch<float, 32>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
-      case 64: return static_cast<int>(launch<float, 64>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
-      case 128: return static_cast<int>(launch<float, 128>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
-      case 256: return static_cast<int>(launch<float, 256>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, scale, st));
+      case 16: return static_cast<int>(launch<float, 16>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, window, scale, st));
+      case 32: return static_cast<int>(launch<float, 32>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, window, scale, st));
+      case 64: return static_cast<int>(launch<float, 64>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, window, scale, st));
+      case 128: return static_cast<int>(launch<float, 128>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, window, scale, st));
+      case 256: return static_cast<int>(launch<float, 256>(q, k_pool, v_pool, pt, ln, out, B, n_t, H, KV, ps, n_slots, window, scale, st));
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const window_bf16::PagedKeys<true> keys{pt, ps, n_slots, nullptr};
+  if (window > 0) {
+    const window_bf16::CausalRowsInWindow mask{{}, window};
+    return static_cast<int>(window_bf16::dispatch(
+        D, row_tile, q, k_pool, v_pool, keys, mask, ln, out, pa, tk, B, n_t,
+        H, KV, n_split, split_slots, scale, st));
+  }
   return static_cast<int>(window_bf16::dispatch(
       D, row_tile, q, k_pool, v_pool, keys, window_bf16::CausalRows{}, ln, out,
       pa, tk, B, n_t, H, KV, n_split, split_slots, scale, st));

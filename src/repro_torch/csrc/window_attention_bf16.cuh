@@ -12,7 +12,10 @@
 //     of int8 codes with one k and one v scale per (b, kv head)
 //     (``ContiguousCodes``, B9: its ``elem`` is int8_t);
 //   - a mask policy says which keys a query row sees: B1's per-row horizon,
-//     row t sees kpos < lengths[b] + t (``CausalRows``), or a token tree's,
+//     row t sees kpos < lengths[b] + t (``CausalRows``), the same within a
+//     sliding window of the last ``window`` keys (``CausalRowsInWindow``,
+//     whose tiles start their walk at their first row's lowest key), or a
+//     token tree's,
 //     row t sees kpos < lengths[b] and window key lengths[b] + u where bit u
 //     of its 64-bit ancestor word is set (``TreeRows``, T <= 64).
 //
@@ -110,11 +113,14 @@ struct PagedKeys {
 
   __device__ void row(int b) { pt = page_table + (size_t)b * n_slots; }
   __device__ int n_keys() const { return n_slots * ps; }
-  __device__ void range(int sp, int split, int tile_h, int& k_begin,
-                        int& k_end) const {
+  // ``tile_lo``: the lowest key the tile sees (0 but in a key window); a
+  // slot split counts its slots from the slot that holds it
+  __device__ void range(int sp, int split, int tile_lo, int tile_h,
+                        int& k_begin, int& k_end) const {
     if (SLOT_SPLIT) {
-      k_begin = sp * split * ps;
-      k_end = min(min(sp * split + split, n_slots) * ps, tile_h);
+      const int s0 = tile_lo / ps + sp * split;
+      k_begin = s0 * ps;
+      k_end = min(min(s0 + split, n_slots) * ps, tile_h);
     } else {
       k_begin = sp * split;
       k_end = min(min(k_begin + split, n_slots * ps), tile_h);
@@ -146,7 +152,7 @@ struct ContiguousKeys {
 
   __device__ void row(int b_) { b = b_; }
   __device__ int n_keys() const { return S; }
-  __device__ void range(int sp, int split, int tile_h, int& k_begin,
+  __device__ void range(int sp, int split, int, int tile_h, int& k_begin,
                         int& k_end) const {
     k_begin = sp * split;
     k_end = min(min(k_begin + split, S), tile_h);
@@ -181,6 +187,7 @@ struct CausalRows {
   __device__ int tile_horizon(int base, int t_last, int) const {
     return base + t_last;
   }
+  __device__ int tile_floor(int, int) const { return 0; }
   __device__ void stage(int, int, int, int, int) {}
   __device__ void row(int half, bool live, int base, int t) {
     horizon[half] = live ? base + t : 0;
@@ -188,6 +195,21 @@ struct CausalRows {
   __device__ void chunk(int, int) {}
   __device__ bool sees(int kpos, int, int half) const {
     return kpos < horizon[half];
+  }
+};
+
+// B1 of a sliding-window layer: row t sees the last ``window`` keys below
+// its horizon, lengths[b] + t - window <= kpos < lengths[b] + t.  The tile
+// starts its walk at the slot of its first row's lowest key, so slots
+// below every row's window are never read (they may be -1).
+struct CausalRowsInWindow : CausalRows {
+  int window;
+
+  __device__ int tile_floor(int base, int t_first) const {
+    return max(0, base + t_first - window);
+  }
+  __device__ bool sees(int kpos, int, int half) const {
+    return kpos < horizon[half] && kpos >= horizon[half] - window;
   }
 };
 
@@ -203,6 +225,7 @@ struct TreeRows {
   __device__ int tile_horizon(int base, int, int n_t) const {
     return base + n_t;
   }
+  __device__ int tile_floor(int, int) const { return 0; }
   // the words of window rows t0..t1 to shared memory, one warp per row
   __device__ void stage(int b, int n_t, int t0, int t1, int tid) {
     __shared__ unsigned long long words_s[T_MAX];
@@ -319,7 +342,8 @@ window_attention_kernel(const bf16* __restrict__ q,
   const int tile_h =
       min(mask.tile_horizon(base, (r0 + live - 1) / G, n_t), keys.n_keys());
   int k_begin, k_end;
-  keys.range(sp, split, tile_h, k_begin, k_end);
+  keys.range(sp, split, mask.tile_floor(base, r0 / G), tile_h, k_begin,
+             k_end);
   const int n_chunks = __syncthreads_or(keys.any_key(k_begin, k_end, tid))
                            ? (k_end - k_begin + KC - 1) / KC
                            : 0;

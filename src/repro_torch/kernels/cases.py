@@ -95,13 +95,15 @@ def time_ms(fn, iters: int = 50, warmup: int = 5, flush_mb: int = 64) -> float:
 # ---------------------------------------------------------------------------
 
 def paged_case(B, T, H, KV, D, ps, ctx, dtype, device, seed=0, holes=True,
-               lengths=None, width=None):
+               lengths=None, width=None, window=0):
     """q (B, T, H, D) and pools with contexts of ctx/2..ctx tokens (or the
     rows' ``lengths``) on scattered, non-contiguous pages; slots past each
     row's window stay -1, and with ``holes`` the last row is all -1 (a
     retired row).  ``ctx=1`` is a prefill at offset 0 (lengths 1: row t
     attends [0, t]).  ``width`` sets the table's slots (a serving table is
-    max_len / ps wide), else the rows' windows and two more."""
+    max_len / ps wide), else the rows' windows and two more.  ``window`` >
+    0 (a sliding-window layer's): slots wholly below each row's first
+    query's window are -1, as the serving engine leaves them."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     if lengths is not None:
         ctx = max(lengths)
@@ -121,6 +123,8 @@ def paged_case(B, T, H, KV, D, ps, ctx, dtype, device, seed=0, holes=True,
         need = min(n_slots, -(-(int(lengths[b]) + T - 1) // ps))
         pt[b, :need] = perm[n:n + need].to(torch.int32)
         n += need
+        if window > 0:
+            pt[b, :max(0, int(lengths[b]) - window) // ps] = -1
     if holes and B > 2:
         pt[-1] = -1
     return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
@@ -147,6 +151,19 @@ PAGED_EDGE_CASES = [
      dict(width=64)),
 ]
 
+# B1 with a key window, as the same triples: SmallThinker-21BA3B's window
+# layers (window 4096, 28 / 4 heads of 128) at the longctx cell's verify
+# window on its serving table, the slots below each row's window freed,
+# and a prefill from 0 on 64-row tiles; then a small window on pages of 8
+PAGED_WINDOW_CASES = [
+    ("st21b verify T=9, window 4096", (24, 9, 28, 4, 128, 16, 12000),
+     dict(width=1024, holes=False, window=4096)),
+    ("st21b prefill T=8191, window 4096", (1, 8191, 28, 4, 128, 16, 1),
+     dict(width=512, holes=False, window=4096)),
+    ("window 17, pages of 8, draft step", (4, 1, 8, 2, 64, 8, 300),
+     dict(width=64, window=17)),
+]
+
 
 # (rtol, atol) of the kernel against ``paged_attention_held``: float32 is the
 # band of ``tests/test_kernels.py``; a bfloat16 output is the kernel's float32
@@ -155,21 +172,30 @@ PAGED_EDGE_CASES = [
 PAGED_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 1e-3)}
 
 
-def paged_attention_held(q, k_pool, v_pool, page_table, lengths):
+def paged_attention_held(q, k_pool, v_pool, page_table, lengths, window=0):
     """What the kernel is held against: the plain version in float32 on the
     same inputs (bfloat16 ones upcast exactly), so a bfloat16 output is
     compared with the exact answer, not with one rounded twice more."""
     from .paged_attention import paged_attention_plain
 
     return paged_attention_plain(q.float(), k_pool.float(), v_pool.float(),
-                                 page_table, lengths)
+                                 page_table, lengths, window=window)
 
 
-def paged_work(q, k_pool, v_pool, page_table, lengths) -> tuple[int, int]:
+def _window_keys(ln: int, t: int, s: int, ps: int, window: int) -> int:
+    """Keys of slot ``s`` that query row t (horizon ln + t) sees."""
+    hi = min(ps, max(0, ln + t - s * ps))
+    lo = 0 if window <= 0 else min(ps, max(0, ln + t - window - s * ps))
+    return max(0, hi - lo)
+
+
+def paged_work(q, k_pool, v_pool, page_table, lengths,
+               window=0) -> tuple[int, int]:
     """(bytes, operations) paged attention needs for these inputs: q, the
     output, the table and lengths once, plus every K/V page some row can
-    see (mapped and below the row's last horizon), across all kv heads;
-    4*D operations (two multiply-adds) per visible (query head, key)."""
+    see (mapped, below the row's last horizon and, in a ``window``, not
+    wholly below its first query's window), across all kv heads; 4*D
+    operations (two multiply-adds) per visible (query head, key)."""
     B, T, H, D = q.shape
     P, ps, KV, _ = k_pool.shape
     pt, ln = page_table.cpu().long(), lengths.cpu().long()
@@ -177,19 +203,22 @@ def paged_work(q, k_pool, v_pool, page_table, lengths) -> tuple[int, int]:
     n_bytes = 2 * q.numel() * item + pt.numel() * 4 + ln.numel() * 4
     ops = 0
     for b in range(B):
+        floor = 0 if window <= 0 else int(ln[b]) - window
         live = [s for s in range(pt.shape[1])
-                if pt[b, s] >= 0 and s * ps < ln[b] + T - 1]
+                if pt[b, s] >= 0 and s * ps < ln[b] + T - 1
+                and (s + 1) * ps > floor]
         n_bytes += 2 * len(live) * ps * KV * D * item
         for t in range(T):
-            keys = sum(min(ps, max(0, int(ln[b]) + t - s * ps)) for s in live)
+            keys = sum(_window_keys(int(ln[b]), t, s, ps, window)
+                       for s in live)
             ops += 4 * H * keys * D
     return n_bytes, ops
 
 
-def paged_sdpa_inputs(q, k_pool, v_pool, page_table, lengths):
+def paged_sdpa_inputs(q, k_pool, v_pool, page_table, lengths, window=0):
     """The same attention as one library call's operands: K/V gathered to
-    a contiguous (B, H, S, D) view (GQA heads expanded) and a boolean mask.
-    Built once, outside any timing."""
+    a contiguous (B, H, S, D) view (GQA heads expanded) and a boolean mask
+    (a band, with ``window``).  Built once, outside any timing."""
     B, T, H, D = q.shape
     P, ps, KV, _ = k_pool.shape
     n_slots = page_table.shape[1]
@@ -202,6 +231,8 @@ def paged_sdpa_inputs(q, k_pool, v_pool, page_table, lengths):
     horizon = lengths.long()[:, None] + torch.arange(T, device=q.device)
     mapped = (page_table >= 0).repeat_interleave(ps, dim=1)
     mask = (kpos[None, None] < horizon[:, :, None]) & mapped[:, None]
+    if window > 0:
+        mask = mask & (kpos[None, None] >= horizon[:, :, None] - window)
     return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
 
 

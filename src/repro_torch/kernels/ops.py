@@ -203,12 +203,14 @@ def _span(name: str, x: torch.Tensor, route: str):
                             "backend": route})
 
 
-def paged_attention(q, k_pool, v_pool, page_table, lengths):
+def paged_attention(q, k_pool, v_pool, page_table, lengths, window=0):
     """Window/decode attention through a paged KV cache.
 
     q: (B, T, H, D); pools: (P, ps, KV, D); page_table: (B, n_slots) int32
     (-1 = unmapped); lengths: (B,) int32 valid kv count for query row 0 (row
-    t attends [0, lengths + t)).  Returns (B, T, H, D).
+    t attends [0, lengths + t)); ``window`` > 0 (a python int, a sliding-
+    window layer's): row t attends only the last ``window`` of those keys.
+    Returns (B, T, H, D).
     """
     _no_dtensor("paged_attention", q)
     route = _route(q)
@@ -216,11 +218,11 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
         if route == "cuda":
             _no_grad_through("paged_attention", q, k_pool, v_pool)
             out = _pa.paged_attention_cuda(q, k_pool, v_pool, page_table,
-                                           lengths)
+                                           lengths, window=window)
         else:
             _plain_calls["paged_attention"] += 1
             out = _pa.paged_attention_plain(q, k_pool, v_pool, page_table,
-                                            lengths)
+                                            lengths, window=window)
         sp.attach(out)
     return out
 

@@ -3,7 +3,9 @@
 The kernel (``csrc/paged_attention.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.paged_attention.paged_attention_pallas``: GQA attention of
 a T-token query window through a page table, row t attending logical
-positions ``[0, lengths_b + t)``, unmapped (-1) slots skipped.  It runs on
+positions ``[0, lengths_b + t)`` (with ``window`` > 0, a sliding-window
+layer's, only the last ``window`` of them), unmapped (-1) slots skipped.  It
+runs on
 every prefill, draft step and verification window of the paged serving
 path.  ``paged_attention_plain`` is the same function in plain PyTorch
 (``ref.paged_attention_ref``); ``ops.paged_attention`` picks between the
@@ -32,7 +34,8 @@ from .ref import paged_attention_ref as paged_attention_plain
 
 __all__ = ["paged_attention_cuda", "paged_attention_plain", "launches",
            "scratch_buffers", "scratch_for", "sm_count", "split_plan",
-           "split_ranges", "window_split_plan", "window_split_ranges"]
+           "split_ranges", "window_slots", "window_split_plan",
+           "window_split_ranges"]
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_PAGE_SIZE = 32
@@ -81,6 +84,19 @@ def split_plan(B: int, KV: int, rows: int, n_slots: int, ps: int,
     split_slots = max(1, -(-n_slots // n))
     n_split = max(1, -(-n_slots // split_slots))
     return row_tile, row_tiles, n_split, split_slots
+
+
+def window_slots(n_slots: int, ps: int, window: int, T: int,
+                 row_tile: int) -> int:
+    """The slots a tile of a sliding-window call can see, counted from the
+    slot of its first row's lowest key: its keys run from that key to the
+    last row's horizon, ``window`` plus at most ``min(T, row_tile) - 1``
+    positions, which span at most one slot more than they fill.  The whole
+    table (``n_slots``) without a window."""
+    if window <= 0:
+        return n_slots
+    span = window + min(T, row_tile) - 1
+    return min(n_slots, -(-span // ps) + 1)
 
 
 def split_ranges(n_slots: int, n_split: int,
@@ -160,7 +176,7 @@ def _entry():
     if _fn is None:
         fn = build.library("paged_attention").paged_attention_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -173,10 +189,14 @@ def _check(cond: bool, msg: str) -> None:
 
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, page_table: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
     """q (B, T, H, D); pools (P, ps, KV, D); page_table (B, n_slots) int32;
-    lengths (B,) int32 -> (B, T, H, D).  Launches the CUDA kernel on the
-    current stream; raises on anything the kernel does not take."""
+    lengths (B,) int32 -> (B, T, H, D).  ``window`` > 0: row t sees only
+    keys ``[lengths_b + t - window, lengths_b + t)``, and at bfloat16 the
+    split plan covers the ``window_slots`` from each tile's lowest key.
+    Launches the CUDA kernel on the current stream; raises on anything the
+    kernel does not take."""
+    window = int(window)
     global launches
     tensors = (q, k_pool, v_pool, page_table, lengths)
     _check(all(t.is_cuda for t in tensors), "all tensors must be on a CUDA device")
@@ -197,6 +217,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     _check(1 <= ps <= MAX_PAGE_SIZE, f"page size {ps} not in [1, {MAX_PAGE_SIZE}]")
     _check(page_table.dim() == 2 and page_table.shape[0] == B
            and lengths.shape == (B,), "page_table (B, n_slots), lengths (B,)")
+    _check(window >= 0, f"window {window} must be >= 0 (0: none)")
     _check(q.dtype == torch.float32
            or all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)),
            "bfloat16 q and pools must be 16-byte aligned")
@@ -208,8 +229,11 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     part = tickets = None
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
+            rows = T * (H // KV)
+            seen = window_slots(n_slots, ps, window, T,
+                                16 if rows <= 16 else 64)
             row_tile, row_tiles, n_split, split_slots = split_plan(
-                B, KV, T * (H // KV), n_slots, ps, sm_count(q.device))
+                B, KV, rows, seen, ps, sm_count(q.device))
             if n_split > 1:
                 n_part = B * KV * row_tiles * n_split * row_tile
                 part, tickets = scratch_for(q.device, n_part * (D + 2),
@@ -221,8 +245,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                        None if part is None else part.data_ptr(),
                        None if tickets is None else tickets.data_ptr(),
                        B, T, H, KV, D, ps, n_slots, row_tile, n_split,
-                       split_slots, _DTYPES[q.dtype], 1.0 / math.sqrt(D),
-                       stream)
+                       split_slots, window, _DTYPES[q.dtype],
+                       1.0 / math.sqrt(D), stream)
     build.check(err, "paged_attention")
     launches += 1
     return out

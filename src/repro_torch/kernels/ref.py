@@ -105,7 +105,8 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor):
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, page_table: torch.Tensor,
                         lengths: torch.Tensor,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        window: int = 0) -> torch.Tensor:
     """Decode/window attention through a paged KV cache.
 
     q: (B, T, H, D) window queries (T=1 decode, T=L+1 verification).
@@ -114,6 +115,10 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         unmapped: those positions are masked out).
     lengths: (B,) valid kv count for query row 0; query row t attends
         logical positions [0, lengths_b + t).
+    window: > 0 for a sliding-window layer: row t attends only the last
+        ``window`` of those positions, [lengths_b + t - window, lengths_b +
+        t); slots wholly below every row's window are never read (-1 there
+        is masked like any unmapped slot).
     Returns (B, T, H, D).
 
     A query row that sees no key at all (an all-(-1) table row: retired or
@@ -135,6 +140,8 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     kpos = torch.arange(S, device=q.device)
     horizon = lengths.long()[:, None] + torch.arange(T, device=q.device)[None]
     valid = kpos[None, None, :] < horizon[:, :, None]              # (B, T, S)
+    if window > 0:
+        valid = valid & (kpos[None, None, :] >= horizon[:, :, None] - window)
     mapped = (page_table >= 0).repeat_interleave(ps, dim=1)       # (B, S)
     valid = valid & mapped[:, None, :]
     logits = torch.where(valid[:, None, None], logits,

@@ -8,7 +8,8 @@ page table and contiguous (B, S) slabs, each with sequential windows
 (prefill, draft steps, J=1 verification), token-tree windows (J > 1
 rounds) and the K/V window gather/scatter of the tree scatter-commit; plus
 cache-free attention for full-sequence scoring, and the mixture of experts
-(``MoEConfig``, ``init_moe``, ``moe_apply``).
+(``MoEConfig``, ``init_moe``, ``moe_apply``: the capacity dispatch, or
+dropless over the routed rows alone).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from repro_torch.distributed.sharding import (
     shards_dividing,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace
 
 Params = Any  # nested dict of tensors
 
@@ -498,9 +500,13 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
                     rope_theta: float | None, kv_cache=None, cache_offset=None,
                     page_table: torch.Tensor | None = None,
                     window_mask: torch.Tensor | None = None,
-                    mask: torch.Tensor | None = None):
+                    mask: torch.Tensor | None = None, window: int = 0):
     """Full attention layer.  Returns (out, (k, v)): the updated caches, or
-    the fresh keys and values when there is no cache.
+    the fresh keys and values when there is no cache.  ``rope_theta`` None
+    applies no rotary embedding (a NoPE layer); ``window`` > 0 is a
+    sliding-window layer's key window, passed to ``ops.paged_attention``
+    (the paged sequential windows only: cache-free scoring takes it in
+    ``mask``).
 
     * ``kv_cache=None``: cache-free attention under ``mask`` (full-sequence
       scoring, ``apply``).
@@ -560,7 +566,8 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
                 offset.to(torch.int32).contiguous(), window_mask)
         else:
             ctx = kops.paged_attention(q, k_cache, v_cache, page_table,
-                                       (offset + 1).to(torch.int32).contiguous())
+                                       (offset + 1).to(torch.int32).contiguous(),
+                                       window=window)
     else:
         update_kv_cache(k_cache, k, offset)
         update_kv_cache(v_cache, v, offset)
@@ -585,9 +592,23 @@ def attention_apply(params: Params, x: torch.Tensor, *, num_heads: int,
 # MLP (SwiGLU / GeGLU / GELU)
 # ---------------------------------------------------------------------------
 
+GATED = ("swiglu", "geglu", "reglu")
+
+
+def gated(gate: torch.Tensor, up: torch.Tensor, activation: str) -> torch.Tensor:
+    """The gated unit of a GLU MLP or expert: act(gate) * up."""
+    if activation == "swiglu":
+        return F.silu(gate) * up
+    if activation == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if activation == "reglu":
+        return F.relu(gate) * up
+    raise ValueError(f"no gated unit for activation {activation}")
+
+
 def init_mlp(gen, d_model: int, d_ff: int, activation: str,
              dtype=torch.float32) -> Params:
-    if activation in ("swiglu", "geglu"):
+    if activation in GATED:
         return {"w_gate": dense_init(gen, d_model, d_ff, dtype),
                 "w_up": dense_init(gen, d_model, d_ff, dtype),
                 "w_down": dense_init(gen, d_ff, d_model, dtype)}
@@ -608,6 +629,8 @@ def mlp_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "geglu":
         return (F.gelu(up("w_gate"), approximate="tanh")
                 * up("w_up")) @ params["w_down"]
+    if activation == "reglu":
+        return (F.relu(up("w_gate")) * up("w_up")) @ params["w_down"]
     if activation == "gelu":
         return F.gelu(up("w_up"), approximate="tanh") @ params["w_down"]
     raise ValueError(f"unknown activation {activation}")
@@ -622,7 +645,7 @@ class MoEConfig:
     num_experts: int
     top_k: int
     d_ff: int                      # per-expert hidden
-    activation: str = "swiglu"
+    activation: str = "swiglu"     # swiglu | geglu | reglu | gelu
     capacity_factor: float = 1.25
     num_shared_experts: int = 0    # always-on shared experts (DeepSeek style)
     shared_d_ff: int = 0
@@ -666,10 +689,14 @@ def moe_capacity(tokens: int, mcfg: MoEConfig,
 
 
 def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
-              capacity_factor: float | None = None):
+              capacity_factor: float | None = None,
+              router_x: torch.Tensor | None = None, dropless: bool = False,
+              count: tuple | None = None):
     """Sort-based top-k MoE dispatch with capacity (GShard style), as the
     JAX package's ``moe_apply``.  x (B, S, d) -> (out (B, S, d), aux), aux
-    the load-balancing loss of Switch Transformers.
+    the load-balancing loss of Switch Transformers.  The router scores
+    ``router_x`` (B, S, d) where given (a router placed before attention
+    reads the attention's normed input), else ``x``.
 
     Everything stays on the device and makes no host sync: the capacity C
     comes from shapes; the routed items are sorted by expert with a stable
@@ -681,6 +708,17 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     each token's K contributions in float32 over a (T, K, d) view, in a
     fixed order, where the JAX package has ``segment_sum``.
 
+    ``dropless``: no capacity and no drop; the routed rows alone, sorted by
+    expert, run as three grouped products (``torch._grouped_mm``) whose
+    group ends are ``searchsorted`` on the device (``moe_dropless``), with
+    the same combine: the layer at C = T (cf = E / K) without the (E, T, d)
+    buffer and its E / K times the routed work.  It needs a bfloat16 input
+    on a CUDA device (the card's grouped kernel; on the CPU any dtype) and
+    rows 16-byte aligned, and runs the capacity path at C = T otherwise.
+    ``count`` = (counts (E,) int32, needed (B, S) bool) writes, for
+    tracing, the routed rows of the needed tokens per expert into
+    ``counts`` (on the device, no sync).
+
     A DTensor ``x`` is dispatched by explicit redistribution: the routing
     (top-k, ``argsort``, ``searchsorted``, the dispatch and combine
     scatters, which have no DTensor sharding strategy) runs on every rank
@@ -689,25 +727,32 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     DTensor ``bmm``s of the replicated dispatch buffer with the experts in
     their own placements (experts over ``model``, d over the data axes),
     and the expert outputs are all-gathered back for the combine.  The
-    shared and dense-residual MLPs run on ``x`` as it is sharded."""
+    shared and dense-residual MLPs run on ``x`` as it is sharded (a
+    DTensor runs the capacity path, at C = T for ``dropless``)."""
     B, S, d = x.shape
     E, K = mcfg.num_experts, mcfg.top_k
     T = B * S
-    C = moe_capacity(T, mcfg, capacity_factor)
     sharded = kops._is_dtensor(x)
+    if dropless and (sharded or not _grouped_ok(x, mcfg)):
+        dropless, capacity_factor = False, E / K
+    C = moe_capacity(T, mcfg, capacity_factor)
+    rx = x if router_x is None else router_x
     if sharded:
         from torch.distributed.tensor import DTensor, Replicate
 
         mesh = x.device_mesh
         rep = (Replicate(),) * mesh.ndim
         xt = x.redistribute(mesh, rep).to_local().reshape(T, d)
+        rt = (xt if router_x is None
+              else rx.redistribute(mesh, rep).to_local().reshape(T, d))
         router = params["router"].redistribute(mesh, rep).to_local()
     else:
         xt = x.reshape(T, d)
+        rt = rx.reshape(T, d)
         router = params["router"]
     dev = xt.device
 
-    logits = xt.float() @ router                                 # (T, E)
+    logits = rt.float() @ router.float()                         # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)          # (T, K)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -717,6 +762,20 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     me = probs.mean(dim=0)
     ce = (expert_idx[:, :1] == experts_row).float().mean(dim=0)
     aux = E * (me * ce).sum()
+    if count is not None:
+        counts, needed = count
+        counts.zero_()
+        counts.index_add_(0, expert_idx.reshape(-1),
+                          needed.reshape(T, 1).expand(T, K).reshape(-1)
+                          .to(counts.dtype))
+
+    if dropless:
+        with (trace.NULL_SPAN if trace.active() is None else trace.span(
+                "ops.moe", cat="kernel",
+                args={"shape": [T, d], "dtype": str(x.dtype),
+                      "backend": "grouped"})):
+            y = moe_dropless(params, xt, expert_idx, gate_vals, mcfg)
+        return _moe_tail(params, x, y.reshape(B, S, d), mcfg), aux
 
     flat_expert = expert_idx.reshape(-1)                          # (T*K,)
     order = torch.argsort(flat_expert, stable=True)
@@ -734,11 +793,9 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
     buf = buf[:-1].reshape(E, C, d)
     if sharded:
         buf = DTensor.from_local(buf, mesh, rep, run_check=False)
-    if mcfg.activation in ("swiglu", "geglu"):
-        gate = torch.bmm(buf, params["w_gate"])
-        gate = (F.silu(gate) if mcfg.activation == "swiglu"
-                else F.gelu(gate, approximate="tanh"))
-        h = gate * torch.bmm(buf, params["w_up"])
+    if mcfg.activation in GATED:
+        h = gated(torch.bmm(buf, params["w_gate"]),
+                  torch.bmm(buf, params["w_up"]), mcfg.activation)
     else:
         h = F.gelu(torch.bmm(buf, params["w_up"]), approximate="tanh")
     out = torch.bmm(h, params["w_down"])
@@ -760,9 +817,65 @@ def moe_apply(params: Params, x: torch.Tensor, mcfg: MoEConfig,
         y = DTensor.from_local(y, mesh, rep, run_check=False)
         y = y.redistribute(mesh, x.placements)
         aux = DTensor.from_local(aux, mesh, rep, run_check=False)
+    return _moe_tail(params, x, y, mcfg), aux
+
+
+def _moe_tail(params: Params, x: torch.Tensor, y: torch.Tensor,
+              mcfg: MoEConfig) -> torch.Tensor:
+    """The routed experts' output ``y`` plus the shared and dense-residual
+    MLPs on ``x``."""
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x, mcfg.activation)
     if "dense" in params:
         y = y + mlp_apply(params["dense"], x, mcfg.activation)
-    return y, aux
+    return y
+
+
+def _grouped_ok(x: torch.Tensor, mcfg: MoEConfig) -> bool:
+    """Whether ``moe_dropless`` runs on ``x``: the card's grouped kernel
+    takes bfloat16 (its other dtypes would leave the device for their group
+    sizes), the CPU any dtype; the rows of x, the hidden units and the
+    expert matrices 16-byte aligned."""
+    align = 16 // x.element_size()
+    if x.is_cuda and x.dtype != torch.bfloat16:
+        return False
+    return x.shape[-1] % align == 0 and mcfg.d_ff % align == 0
+
+
+def moe_dropless(params: Params, xt: torch.Tensor, expert_idx: torch.Tensor,
+                 gate_vals: torch.Tensor, mcfg: MoEConfig) -> torch.Tensor:
+    """The routed experts of tokens ``xt`` (T, d) at their top-k choices
+    ``expert_idx`` / ``gate_vals`` (T, K), dropping none -> (T, d).
+
+    The T * K routed rows are sorted by expert (stable), and each expert
+    product is one ``torch._grouped_mm`` over the sorted rows with the
+    group ends ``offs`` found by ``searchsorted`` on the device: no host
+    sync, no padding, only routed rows computed.  The combine is the
+    capacity path's: the inverse permutation gathers each item back, and
+    each token's K contributions, weighted, sum in float32 in a fixed
+    order."""
+    T, d = xt.shape
+    E, K = mcfg.num_experts, mcfg.top_k
+    dev = xt.device
+    flat_expert = expert_idx.reshape(-1)                          # (T*K,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order].contiguous()
+    offs = torch.searchsorted(sorted_expert, torch.arange(E, device=dev),
+                              right=True).to(torch.int32)
+    rows = xt.index_select(0, torch.div(order, K, rounding_mode="floor"))
+
+    def gmm(a, w):
+        return torch._grouped_mm(a, w, offs=offs)
+
+    if mcfg.activation in GATED:
+        h = gated(gmm(rows, params["w_gate"]), gmm(rows, params["w_up"]),
+                  mcfg.activation)
+    else:
+        h = F.gelu(gmm(rows, params["w_up"]), approximate="tanh")
+    out = gmm(h, params["w_down"])                                # sorted
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=dev))
+    weight = gate_vals.reshape(-1).to(xt.dtype)
+    contrib = out.index_select(0, inv) * weight[:, None]
+    return contrib.reshape(T, K, d).float().sum(dim=1).to(xt.dtype)
 

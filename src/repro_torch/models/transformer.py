@@ -28,11 +28,20 @@ three.  Caches are updated in place.
 MoE stacks (``num_experts`` > 0) run ``first_k_dense`` dense blocks
 (``dense_blocks``, cache leaves ``dense_k`` / ``dense_v``) before the MoE
 blocks (``blocks``, leaves ``k`` / ``v``); each MoE block's MLP is
-``layers.moe_apply`` at the configured capacity factor in ``apply``, and at
-the no-drop capacity in ``prefill`` (by default) and in every
-``forward_window`` (the exact model for verification).  The aux losses of
-the blocks are summed.  A VLM prepends ``prefix_embeds`` (B, P, d) to the
-token embeddings in ``apply`` and ``prefill``.
+``layers.moe_apply`` at the configured capacity factor in ``apply``, and
+dropless (the routed rows alone, grouped products) in ``prefill`` (by
+default) and in every ``forward_window`` (the exact model for
+verification).  The aux losses of the blocks are summed.  A VLM prepends
+``prefix_embeds`` (B, P, d) to the token embeddings in ``apply`` and
+``prefill``.
+
+A ``LayerPatternConfig`` (``layer_pattern.py``) varies the layers: window
+layers see their last ``sliding_window`` keys (``ops.paged_attention``'s
+``window``; a band mask in ``apply``) and keep their K/V in leaves of their
+own, ``win_k`` / ``win_v``, a pool viewed through ``"win_pages"``; NoPE
+layers apply no rotary embedding; an ``attn_norm`` router scores the
+attention's normed input.  Such a model serves on paged caches in J=1
+windows: the contiguous layout and token-tree windows refuse it.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import logical_constraint
+from repro_torch.kernels import ops as kops
 
+from .layer_pattern import layer_rope, layer_windows, router_input
 from .layers import (
     MoEConfig,
     attention_apply,
@@ -63,6 +74,10 @@ from .layers import (
 
 Params = Any
 
+# float32 logits past this many bytes are made in chunks of rows (``_logits``)
+LOGIT_CHUNK_BYTES = 1 << 32
+LOGIT_CHUNK_ROWS = 2048
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -71,13 +86,17 @@ def _dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+TABLES = ("pages", "win_pages")
+
+
 def strip_view(cache: Params) -> Params:
-    """Drop the ``"pages"`` page-table entry from a paged cache view,
-    leaving only the pool leaves: the page allocator's device mirror owns
-    the live table, and the engine never keeps a copy inside its cache."""
-    if "pages" not in cache:
+    """Drop the page tables (``"pages"``, a windowed model's
+    ``"win_pages"``) from a paged cache view, leaving only the pool leaves:
+    the page allocators' device mirrors own the live tables, and the engine
+    never keeps a copy inside its cache."""
+    if not any(t in cache for t in TABLES):
         return cache
-    return {k: v for k, v in cache.items() if k != "pages"}
+    return {k: v for k, v in cache.items() if k not in TABLES}
 
 
 class DecoderLM:
@@ -107,6 +126,30 @@ class DecoderLM:
         # leading dense blocks of a MoE stack, then the (MoE) ``blocks``
         self.n_dense = cfg.first_k_dense if cfg.num_experts else 0
         self.n_blocks = cfg.num_layers - self.n_dense
+        # per layer (dense blocks first): key window (0: full), RoPE or not,
+        # and the cache leaf that holds its K/V with its index there
+        self.windows = layer_windows(cfg)
+        self.rope = layer_rope(cfg)
+        self.windowed = any(self.windows)
+        self.router_attn = router_input(cfg) == "attn_norm"
+        n = {"dense_": 0, "": 0, "win_": 0}
+        self.kv_slot = []
+        for layer in range(cfg.num_layers):
+            prefix = ("dense_" if layer < self.n_dense
+                      else "win_" if self.windows[layer] else "")
+            self.kv_slot.append((prefix, n[prefix]))
+            n[prefix] += 1
+        self.n_window = n["win_"]
+        # per MoE layer, the routed rows of the counted tokens per expert
+        # (``forward_window``'s ``count_tokens``), for tracing
+        self.moe_counts: torch.Tensor | None = None
+
+    def _refuse_contiguous(self) -> None:
+        if self.windowed:
+            raise NotImplementedError(
+                "a model with sliding-window layers serves on paged caches "
+                "only: its window layers' pages below the window go back to "
+                "their pool, and a contiguous slab holds every position")
 
     @property
     def no_drop_capacity(self) -> float:
@@ -169,7 +212,8 @@ class DecoderLM:
         cfg = self.cfg
         tail = (rows, width, cfg.num_kv_heads, cfg.head_dim)
         cache = {}
-        for prefix, n in (("", self.n_blocks), ("dense_", self.n_dense)):
+        for prefix, n in (("", self.n_blocks - self.n_window),
+                          ("dense_", self.n_dense)):
             if n:
                 for leaf in ("k", "v"):
                     cache[prefix + leaf] = new_page_pool(
@@ -181,7 +225,8 @@ class DecoderLM:
         """Contiguous KV cache: every attention leaf is (layers, B, max_len,
         KV, D), zeroed, each layer followed by the drop slot of
         ``scatter_kv_window`` (outside the view: shapes and bytes are the
-        JAX cache's)."""
+        JAX cache's).  A windowed model refuses: it serves on pages."""
+        self._refuse_contiguous()
         return self._kv_leaves(batch, max_len, dtype)
 
     CACHE_BATCH_AXES = {"k": 1, "v": 1, "dense_k": 1, "dense_v": 1}
@@ -192,62 +237,103 @@ class DecoderLM:
         return concat_caches(caches, self.CACHE_BATCH_AXES)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         dtype=torch.bfloat16) -> Params:
+                         dtype=torch.bfloat16,
+                         window_pages: int | None = None) -> Params:
         """Paged KV pool: every attention leaf is (layers, P, ps, KV, D)
         with NO batch axis.  Pair it with a ``"pages"`` (B, n_slots) int32
         page table to form the cache view ``prefill`` / ``forward_window``
-        take."""
-        return self._kv_leaves(num_pages, page_size, dtype)
+        take.  A windowed model's window layers get leaves ``win_k`` /
+        ``win_v`` of ``window_pages`` pages (default ``num_pages``), viewed
+        through a ``"win_pages"`` table of their own; a view without one
+        maps no window page (writes dropped, nothing read)."""
+        cache = self._kv_leaves(num_pages, page_size, dtype)
+        if self.n_window:
+            cfg = self.cfg
+            for leaf in ("k", "v"):
+                cache["win_" + leaf] = new_page_pool(
+                    self.n_window, window_pages or num_pages, page_size,
+                    cfg.num_kv_heads, cfg.head_dim, dtype=dtype,
+                    device=self.device)
+        return cache
 
     # ------------------------------------------------------------------
     # Forward
     # ------------------------------------------------------------------
 
     def _stack_forward(self, params, x, positions, cache=None, offset=None,
-                       window_mask=None, mask=None, moe_capacity=None):
+                       window_mask=None, mask=None, moe_capacity=None,
+                       band_mask=None, count_tokens=None):
         """Run the leading dense blocks, then the blocks, through the cache
         when one is given (paged when it carries ``"pages"``, contiguous
         otherwise); returns (hidden, cache, summed aux loss), the aux loss
         None when no block is MoE (``_aux`` makes it a tensor for the
         entry points that return it).  With ``cfg.remat`` each of the
         ``blocks`` runs under ``layers.remat`` (the leading dense blocks do
-        not, as in the JAX package)."""
+        not, as in the JAX package).  Window layers read their leaves
+        through ``"win_pages"`` and take ``band_mask`` for ``mask``;
+        ``count_tokens`` (B, T) bool counts each MoE layer's routed rows of
+        those tokens into ``moe_counts``."""
         page_table = cache.get("pages") if cache is not None else None
+        tables = {"": page_table, "dense_": page_table}
+        if self.n_window and page_table is not None:
+            win = cache.get("win_pages")
+            tables["win_"] = (torch.full_like(page_table, -1) if win is None
+                              else win)
+        if count_tokens is not None and self.moe_cfg is not None:
+            if self.moe_counts is None or self.moe_counts.device != x.device:
+                self.moe_counts = torch.zeros(
+                    (self.n_blocks, self.moe_cfg.num_experts),
+                    dtype=torch.int32, device=x.device)
         aux = None
-        for stack, prefix in (("dense_blocks", "dense_"), ("blocks", "")):
+        layer = 0
+        for stack in ("dense_blocks", "blocks"):
             block = remat(self._block, self.cfg.remat and stack == "blocks")
             for i, p in enumerate(params.get(stack, ())):
+                prefix, j = self.kv_slot[layer]
+                window = self.windows[layer]
                 kv = (None if cache is None
-                      else (cache[prefix + "k"][i], cache[prefix + "v"][i]))
-                x, layer_aux = block(p, x, positions, kv, offset, page_table,
-                                     window_mask, mask, moe_capacity)
+                      else (cache[prefix + "k"][j], cache[prefix + "v"][j]))
+                count = None
+                if count_tokens is not None and "moe" in p:
+                    count = (self.moe_counts[i], count_tokens)
+                x, layer_aux = block(
+                    p, x, positions, kv, offset, tables.get(prefix),
+                    window_mask, band_mask if window else mask, moe_capacity,
+                    window, self.rope[layer], count)
                 if layer_aux is not None:
                     aux = layer_aux if aux is None else aux + layer_aux
+                layer += 1
         return x, cache, aux
 
     def _block(self, p, x, positions, kv_cache, offset, page_table,
-               window_mask, mask, moe_capacity):
+               window_mask, mask, moe_capacity, window=0, rope=True,
+               count=None):
         """One pre-norm block: attention, then the MLP or the MoE layer ->
-        (hidden, the MoE aux loss or None)."""
+        (hidden, the MoE aux loss or None).  ``moe_capacity`` "dropless"
+        runs the MoE layer on its routed rows alone."""
         cfg = self.cfg
         h = self.norm(p["ln_attn"], x)
         attn_out, _ = attention_apply(
             p["attn"], h, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            positions=positions, rope_theta=cfg.rope_theta, kv_cache=kv_cache,
-            cache_offset=offset, page_table=page_table,
-            window_mask=window_mask, mask=mask)
+            positions=positions, rope_theta=cfg.rope_theta if rope else None,
+            kv_cache=kv_cache, cache_offset=offset, page_table=page_table,
+            window_mask=window_mask, mask=mask, window=window)
         # the residual stream: batch over the data axes, whole over model
         # (a no-op without an active mesh); DTensor would otherwise leave a
         # partial sum reduce-scattered over the sequence, which its matmul
         # cannot flatten
         x = x + logical_constraint(attn_out, "batch")
-        h = self.norm(p["ln_mlp"], x)
+        hm = self.norm(p["ln_mlp"], x)
         if "moe" in p:
-            out, layer_aux = moe_apply(p["moe"], h, self.moe_cfg,
-                                       capacity_factor=moe_capacity)
+            dropless = moe_capacity == "dropless"
+            out, layer_aux = moe_apply(
+                p["moe"], hm, self.moe_cfg,
+                capacity_factor=None if dropless else moe_capacity,
+                router_x=h if self.router_attn else None, dropless=dropless,
+                count=count)
         else:
-            out, layer_aux = mlp_apply(p["mlp"], h, cfg.activation), None
+            out, layer_aux = mlp_apply(p["mlp"], hm, cfg.activation), None
         return x + logical_constraint(out, "batch"), layer_aux
 
     @staticmethod
@@ -275,10 +361,24 @@ class DecoderLM:
         return x
 
     def _logits(self, params, x):
+        """float32 logits (B, S, V).  Past ``LOGIT_CHUNK_BYTES`` of them
+        (a long prompt's prefill) with no gradient to keep, each chunk of
+        ``LOGIT_CHUNK_ROWS`` rows is computed and cast into the output in
+        turn, so that the product in the compute dtype never stands whole
+        beside its float32 copy."""
         x = self.norm(params["ln_f"], x)
         w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
-        return logical_constraint((x @ w.to(x.dtype)).float(),
-                                  "batch", None, "vocab")
+        w = w.to(x.dtype)
+        B, S, d = x.shape
+        V = w.shape[1]
+        if (B * S * V * 4 <= LOGIT_CHUNK_BYTES or kops._is_dtensor(x)
+                or (torch.is_grad_enabled() and x.requires_grad)):
+            return logical_constraint((x @ w).float(), "batch", None, "vocab")
+        out = torch.empty((B, S, V), dtype=torch.float32, device=x.device)
+        flat, o = x.reshape(B * S, d), out.view(B * S, V)
+        for a in range(0, B * S, LOGIT_CHUNK_ROWS):
+            o[a:a + LOGIT_CHUNK_ROWS] = flat[a:a + LOGIT_CHUNK_ROWS] @ w
+        return out
 
     def apply(self, params, tokens, prefix_embeds=None, moe_capacity=None):
         """Full causal forward, no cache.  tokens (B, S), with a VLM's
@@ -288,20 +388,29 @@ class DecoderLM:
         x = self._embed(params, tokens, prefix_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
+        band = None
+        if self.windowed:
+            # a window layer's query i sees keys i - window < j <= i
+            qi = torch.arange(S, device=x.device)[:, None]
+            kj = torch.arange(S, device=x.device)[None, :]
+            band = ((kj <= qi) & (kj > qi - self.cfg.sliding_window))[
+                None, None, None]
         x, _, aux = self._stack_forward(
             params, x, positions, mask=causal_mask(S, S, device=x.device),
-            moe_capacity=moe_capacity)
+            moe_capacity=moe_capacity, band_mask=band)
         return self._logits(params, x), self._aux(aux, x)
 
     def prefill(self, params, tokens, cache, prefix_embeds=None,
                 moe_capacity="no_drop"):
         """Causal forward writing the KV cache at offset 0.
         tokens (B, S), with ``prefix_embeds`` prepended -> (logits
-        (B, P + S, V) float32, cache, aux).  MoE blocks dispatch at the
-        no-drop capacity unless ``moe_capacity`` names a factor: the cache
-        must hold the exact model for verification to stay exact."""
+        (B, P + S, V) float32, cache, aux).  MoE blocks run dropless unless
+        ``moe_capacity`` names a factor: the cache must hold the exact model
+        for verification to stay exact."""
         if moe_capacity == "no_drop":
-            moe_capacity = self.no_drop_capacity if self.moe_cfg else None
+            moe_capacity = "dropless" if self.moe_cfg else None
+        if "pages" not in cache:
+            self._refuse_contiguous()
         x = self._embed(params, tokens, prefix_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -314,7 +423,7 @@ class DecoderLM:
         return self._logits(params, x), cache, self._aux(aux, x)
 
     def forward_window(self, params, tokens, cache, pos, window_mask=None,
-                       window_depth=None):
+                       window_depth=None, count_tokens=None):
         """T new tokens against an existing cache (contiguous or paged).
 
         tokens: (B, T); pos: (B,) per-row write offsets (current lengths).
@@ -329,11 +438,22 @@ class DecoderLM:
         depths 0..T-1 is the sequential window.  A ``window_depth`` without
         a ``window_mask`` is refused: its rope positions would be out of
         step with the row-index mask of the sequential kernel.
+
+        ``count_tokens`` (B, T) bool: each MoE layer counts the routed rows
+        of these tokens per expert into ``moe_counts`` (tracing).  A
+        windowed model refuses tree windows and contiguous caches.
         """
         if window_depth is not None and window_mask is None:
             raise ValueError("window_depth needs the tree's window_mask")
+        if self.windowed and window_mask is not None:
+            raise NotImplementedError(
+                "token-tree windows of a model with sliding-window layers: "
+                "a tree node's key window would follow its depth, not its "
+                "cache slot, and the tree kernels have no key window")
+        if "pages" not in cache:
+            self._refuse_contiguous()
         # MoE blocks score with the exact model: capacity dropping is
-        # batch-coupled, so windows dispatch at the no-drop factor
+        # batch-coupled, so windows dispatch dropless
         x = self._embed(params, tokens)
         B, T, _ = x.shape
         pos = torch.as_tensor(pos, device=x.device)
@@ -348,8 +468,8 @@ class DecoderLM:
             mask = (kj[None, None, :] <= positions[:, :, None])[:, None, None]
         x, cache, _ = self._stack_forward(
             params, x, positions, cache, pos, window_mask=window_mask,
-            mask=mask,
-            moe_capacity=self.no_drop_capacity if self.moe_cfg else None)
+            mask=mask, moe_capacity="dropless" if self.moe_cfg else None,
+            count_tokens=count_tokens)
         return self._logits(params, x), cache
 
     def num_params(self, params) -> int:

@@ -171,10 +171,13 @@ class StepGraphs:
     and each build a span ``compiled.capture``.  On a CUDA device a pair of
     timing events brackets each traced replay on the current stream;
     ``settle()`` sets ``device_ms`` on the spans whose replays have
-    finished."""
+    finished, and, for an MoE target (``moe_counts`` gives its per-layer
+    counts buffer), ``moe_rows`` / ``moe_hit`` on the last such verify."""
 
-    def __init__(self, record: Callable[[tuple], None] | None):
+    def __init__(self, record: Callable[[tuple], None] | None,
+                 moe_counts: Callable[[], torch.Tensor | None] | None = None):
         self.record = record
+        self.moe_counts = moe_counts
         self.captures = dict.fromkeys(STEPS, 0)
         self.replays = dict.fromkeys(STEPS, 0)
         self.pool = None
@@ -260,13 +263,21 @@ class StepGraphs:
         for a later call.  ``query()`` never waits on the device."""
         if not self._timed:
             return
-        waiting = []
+        waiting, verify = [], None
         for sp, start, end in self._timed:
             if end.query():
                 sp.set(device_ms=start.elapsed_time(end))
+                if sp.name == "compiled.verify":
+                    verify = sp
             else:
                 waiting.append((sp, start, end))
         self._timed = waiting
+        counts = None if self.moe_counts is None else self.moe_counts()
+        if verify is not None and counts is not None:
+            # the last finished verify's counts (a traced read: the
+            # commit's fetch drained the stream already)
+            c = counts.cpu()
+            verify.set(moe_rows=int(c.sum()), moe_hit=int((c > 0).sum()))
 
     def _build(self, step, fn, fixed, refs, args, static, warm) -> _Build:
         devices = {a.device for a in args if a is not None}
@@ -320,17 +331,21 @@ def build_round_steps(target_model, draft_model, *, mode: str,
 
       * ``draft(params, kv, pages, pending, dpos, gumbel, *, L, vhat)`` ->
         ``(tokens, probs, q_idx, q_val)``
-      * ``verify(params, kv, pages, pending, tokens, probs, q_idx, q_val,
-        tpos, draft_len, u_accept, u_resid, bonus_gumbel)`` -> the fields
-        of a ``VerifyResult``
+      * ``verify(params, kv, pages, win_pages, pending, tokens, probs,
+        q_idx, q_val, tpos, draft_len, u_accept, u_resid, bonus_gumbel)`` ->
+        the fields of a ``VerifyResult``; an MoE target counts each layer's
+        routed rows of the rows' own tokens (``draft_len`` + 1 a row) into
+        its ``moe_counts``
       * ``commit(pending, target_pos, draft_pos, rows, skip, output_tokens,
         accept_counts)`` -> ``(pending, target_pos, draft_pos, emission)``
 
     ``pages`` is the (n, n_slots) page table of a paged cache, None for a
-    contiguous one; ``kv`` is written in place.  In a compiled mode each
-    also takes ``run=False`` (build only: draft and verify then return
-    None, commit the state it would commit with an emission of None) and
-    draft / verify a ``warm_kv`` for the eager run before a capture.
+    contiguous one, and ``win_pages`` a windowed target's window-layer
+    table (None without window layers); ``kv`` is written in place.  In a
+    compiled mode each also takes ``run=False`` (build only: draft and
+    verify then return None, commit the state it would commit with an
+    emission of None) and draft / verify a ``warm_kv`` for the eager run
+    before a capture.
     """
     if mode not in COMPILE_MODES:
         raise ValueError(f"compile_mode must be one of {COMPILE_MODES}, "
@@ -342,11 +357,21 @@ def build_round_steps(target_model, draft_model, *, mode: str,
                               gumbel, vhat=vhat)
         return res.tokens, res.probs, res.q_idx, res.q_val
 
-    def verify_step(params, kv, pages, pending, tokens, probs, q_idx, q_val,
-                    tpos, draft_len, u_accept, u_resid, bonus_gumbel):
+    moe = getattr(target_model, "moe_cfg", None) is not None
+
+    def verify_step(params, kv, pages, win_pages, pending, tokens, probs,
+                    q_idx, q_val, tpos, draft_len, u_accept, u_resid,
+                    bonus_gumbel):
         cache = kv if pages is None else dict(kv, pages=pages)
+        if win_pages is not None:
+            cache = dict(cache, win_pages=win_pages)
         window = torch.cat([pending[:, None].to(tokens.dtype), tokens], dim=1)
-        logits, _ = target_model.forward_window(params, window, cache, tpos)
+        count = None
+        if moe:
+            count = (torch.arange(window.shape[1], device=window.device)[None]
+                     <= draft_len[:, None])
+        logits, _ = target_model.forward_window(params, window, cache, tpos,
+                                                count_tokens=count)
         res = verify_drafts(tokens, probs, logits, q_idx, q_val, u_accept,
                             u_resid, bonus_gumbel, draft_len=draft_len)
         return (res.accept_counts, res.output_tokens, res.output_len,
@@ -355,7 +380,8 @@ def build_round_steps(target_model, draft_model, *, mode: str,
     if mode == "eager":
         return RoundSteps(mode=mode, draft=draft_step, verify=verify_step,
                           commit=commit_step)
-    graphs = StepGraphs(record)
+    graphs = StepGraphs(record, (lambda: target_model.moe_counts)
+                        if moe else None)
     donate = mode == "jit+donate"
 
     def draft(params, kv, pages, pending, dpos, gumbel, *, L, vhat,
@@ -366,13 +392,13 @@ def build_round_steps(target_model, draft_model, *, mode: str,
             warm=None if warm_kv is None else (lambda: (params, warm_kv)),
             run=run)
 
-    def verify(params, kv, pages, pending, tokens, probs, q_idx, q_val, tpos,
-               draft_len, u_accept, u_resid, bonus_gumbel, *, warm_kv=None,
-               run=True):
+    def verify(params, kv, pages, win_pages, pending, tokens, probs, q_idx,
+               q_val, tpos, draft_len, u_accept, u_resid, bonus_gumbel, *,
+               warm_kv=None, run=True):
         return graphs.call(
             "verify", verify_step, (params, kv),
-            (pages, pending, tokens, probs, q_idx, q_val, tpos, draft_len,
-             u_accept, u_resid, bonus_gumbel), tuple(tokens.shape),
+            (pages, win_pages, pending, tokens, probs, q_idx, q_val, tpos,
+             draft_len, u_accept, u_resid, bonus_gumbel), tuple(tokens.shape),
             warm=None if warm_kv is None else (lambda: (params, warm_kv)),
             run=run)
 

@@ -108,6 +108,10 @@ class PagedKVCache:
     ``forward_window`` is the ``(B, pages_per_stream)`` int32 page-table
     slice for the rows in the batch, on ``device`` (``-1`` marks unmapped
     slots; model-side writes there are dropped and reads are masked).
+
+    A stream's table may have holes at its front: ``release_below`` returns
+    the pages wholly below a position (a sliding-window layer's keys no
+    query will see again) and leaves -1 in their slots.
     """
 
     def __init__(self, num_pages: int, page_size: int,
@@ -125,6 +129,7 @@ class PagedKVCache:
         self._free: list[int] = list(range(num_pages - 1, -1, -1))
         self._tables: dict[int, list[int]] = {}   # stream -> physical pages
         self._lengths: dict[int, int] = {}        # stream -> valid token count
+        self._floor: dict[int, int] = {}          # stream -> leading -1 slots
         # device-side page-table mirror: (rows + 1, pages_per_stream) int32
         # on ``device``, the last row an all--1 sentinel for padding/unknown
         # rows; mutations mark their row dirty and ``device_table`` uploads
@@ -166,6 +171,7 @@ class PagedKVCache:
             raise ValueError(f"stream {stream} already allocated")
         self._tables[stream] = []
         self._lengths[stream] = 0
+        self._floor[stream] = 0
         try:
             self.extend(stream, length)
         except PagePoolExhausted:
@@ -198,8 +204,11 @@ class PagedKVCache:
         keep = self.pages_for(new_length)
         freed = 0
         while len(table) > keep:
-            self._free.append(table.pop())
-            freed += 1
+            page = table.pop()
+            if page >= 0:
+                self._free.append(page)
+                freed += 1
+        self._floor[stream] = min(self._floor[stream], len(table))
         if freed > 0:
             self._dirty.add(int(stream))
         self._lengths[stream] = int(new_length)
@@ -207,12 +216,32 @@ class PagedKVCache:
 
     def free_stream(self, stream: int) -> int:
         """Unmap a stream entirely; every page returns to the pool."""
-        table = self._tables.pop(stream)
+        table = [p for p in self._tables.pop(stream) if p >= 0]
         self._lengths.pop(stream)
+        self._floor.pop(stream)
         self._free.extend(reversed(table))
-        if table:
-            self._dirty.add(int(stream))
+        self._dirty.add(int(stream))
         return len(table)
+
+    def release_below(self, stream: int, position: int) -> int:
+        """Return to the pool every page of ``stream`` that lies wholly
+        below logical ``position``; their slots become -1.  Returns the
+        number of pages freed."""
+        table = self._tables[stream]
+        floor = self._floor[stream]
+        end = min(max(int(position), 0) // self.page_size, len(table))
+        for s in range(floor, end):
+            self._free.append(table[s])
+            table[s] = -1
+        if end <= floor:
+            return 0
+        self._floor[stream] = end
+        self._dirty.add(int(stream))
+        return end - floor
+
+    def held(self, stream: int) -> int:
+        """Pages ``stream`` maps now: its slots past the freed front."""
+        return len(self._tables[stream]) - self._floor[stream]
 
     # -- views ---------------------------------------------------------------
 
@@ -264,7 +293,7 @@ class PagedKVCache:
     def check_invariants(self) -> None:
         """Every page is either free or mapped exactly once (leak/double-free
         detector)."""
-        mapped = [p for t in self._tables.values() for p in t]
+        mapped = [p for t in self._tables.values() for p in t if p >= 0]
         seen = set(mapped) | set(self._free)
         assert len(mapped) + len(self._free) == self.num_pages, \
             f"leak: {len(mapped)} mapped + {len(self._free)} free != " \

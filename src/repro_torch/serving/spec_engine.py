@@ -21,7 +21,11 @@ Two cache layouts, as in the JAX package:
   * ``cache_kind="paged"`` — both models' KV lives in fixed-size pages of a
     preallocated pool (``PagedKVCache``): streams may join after
     ``start()`` (``add_streams``) and leave (``retire_stream``), and
-    admission is bounded by the page pool (``can_admit``).
+    admission is bounded by the page pool (``can_admit``).  A target with
+    sliding-window layers (``models/layer_pattern.py``) keeps their K/V in
+    a third pool, ``w_pages``, sized to the window: each live row holds the
+    pages its window can still read, the rest go back after every commit
+    and admission.
 
 ``draft_width`` J > 1 runs the multi-draft TOKEN-TREE round instead
 (``_spin_round_tree``): J drafts per stream packed into a
@@ -65,6 +69,7 @@ from repro_torch.core.verification import (
     verify_tree,
 )
 from repro_torch.models import build_model
+from repro_torch.models.layer_pattern import is_windowed
 from repro_torch.models.layers import gather_kv_window, scatter_kv_window
 from repro_torch.models.transformer import strip_view
 from repro_torch.obs import trace
@@ -182,6 +187,13 @@ class SpecEngine:
             raise NotImplementedError(
                 "paged caches cover attention KV only; SSM/hybrid recurrent "
                 "state is O(1) per stream and needs no paging (ROADMAP)")
+        if is_windowed(draft_cfg):
+            raise NotImplementedError("a draft with sliding-window layers")
+        if is_windowed(target_cfg) and cache_kind != "paged":
+            raise NotImplementedError(
+                "a target with sliding-window layers serves on paged caches "
+                "only: its window pages below the window go back to their "
+                "pool, and a contiguous slab holds every position")
         if compile_mode is None:
             compile_mode = os.environ.get("REPRO_COMPILE", "eager")
         if compile_mode not in COMPILE_MODES:
@@ -209,6 +221,11 @@ class SpecEngine:
         self.d_params = None
         self.t_pages: PagedKVCache | None = None
         self.d_pages: PagedKVCache | None = None
+        # a windowed target's window-layer pool: its key window and pages
+        self.window = int(getattr(target_cfg, "sliding_window", 0)
+                          if is_windowed(target_cfg) else 0)
+        self.w_pages: PagedKVCache | None = None
+        self.window_pages = 0
         self._free_rows: list[int] = []
         self._retired: set[int] = set()
         # compiled round path (serving/compiled.py): ``step_shapes`` collects
@@ -317,13 +334,24 @@ class SpecEngine:
                 committed=[list(pnp[b]) for b in range(B)])
         if self.num_pages is None:
             self.num_pages = 2 * B * self.pages_per_stream
+        if self.window:
+            self.window_pages = self.window_pool_pages()
         self.t_cache = self.target.init_paged_cache(
-            self.num_pages, self.page_size, self.cache_dtype)
+            self.num_pages, self.page_size, self.cache_dtype,
+            window_pages=self.window_pages or None)
         self.d_cache = self.draft.init_paged_cache(
             self.num_pages, self.page_size, self.cache_dtype)
+        full = {k: v for k, v in self.t_cache.items()
+                if not k.startswith("win_")}
         self.t_pages = PagedKVCache(
             self.num_pages, self.page_size, self.pages_per_stream,
-            paged_pool_bytes_per_page(self.t_cache), device=self.device)
+            paged_pool_bytes_per_page(full), device=self.device)
+        if self.window:
+            self.w_pages = PagedKVCache(
+                self.window_pages, self.page_size, self.pages_per_stream,
+                paged_pool_bytes_per_page(
+                    {k: self.t_cache[k] for k in ("win_k", "win_v")}),
+                device=self.device)
         self.d_pages = PagedKVCache(
             self.num_pages, self.page_size, self.pages_per_stream,
             paged_pool_bytes_per_page(self.d_cache), device=self.device)
@@ -339,26 +367,63 @@ class SpecEngine:
     # dynamic stream admission
     # ------------------------------------------------------------------
 
+    def window_pool_pages(self) -> int:
+        """Pages of a windowed target's window pool, from the engine's own
+        sizes: each of the ``num_pages / pages_per_stream`` rows the main
+        pools hold at ``max_len`` gets the pages a window of ``window`` keys
+        and a round window of up to ``page_size`` tokens can span, and one
+        admission's prefill (``pages_per_stream``: all its positions are
+        written before the pages below its window go back) comes on top;
+        never more than ``num_pages``."""
+        rows = max(1, self.num_pages // self.pages_per_stream)
+        per_row = -(-(self.window + self.page_size) // self.page_size) + 1
+        return min(self.num_pages, rows * per_row + self.pages_per_stream)
+
+    def _pools(self) -> list[PagedKVCache]:
+        return [m for m in (self.t_pages, self.d_pages, self.w_pages)
+                if m is not None]
+
     def can_admit(self, length: int) -> bool:
-        """Whether BOTH page pools can map a new stream of ``length`` tokens
-        right now (a pure query); never on a contiguous engine."""
+        """Whether EVERY page pool can map a new stream of ``length``
+        tokens right now (a pure query); never on a contiguous engine."""
         if self.cache_kind != "paged":
             return False
-        return (self.t_pages.can_allocate(length)
-                and self.d_pages.can_allocate(length))
+        return all(m.can_allocate(length) for m in self._pools())
 
     def pool_stats(self) -> dict:
-        """Byte-level accounting for placement / admission decisions."""
+        """Byte-level accounting for placement / admission decisions.
+        ``free_pages`` is ``num_pages`` exactly when every pool is empty: a
+        window pool counts its mapped pages against ``num_pages``."""
         if self.cache_kind != "paged":
             return {"cache_bytes": cache_bytes(self.t_cache)
                     + cache_bytes(self.d_cache)}
+        pools = self._pools()
         return {
             "cache_bytes": cache_bytes(self.t_cache) + cache_bytes(self.d_cache),
-            "free_bytes": self.t_pages.free_bytes() + self.d_pages.free_bytes(),
-            "used_bytes": self.t_pages.used_bytes() + self.d_pages.used_bytes(),
-            "free_pages": min(self.t_pages.num_free_pages,
-                              self.d_pages.num_free_pages),
+            "free_bytes": sum(m.free_bytes() for m in pools),
+            "used_bytes": sum(m.used_bytes() for m in pools),
+            "free_pages": min(self.num_pages - m.num_allocated_pages
+                              for m in pools),
         }
+
+    def _release_window(self, rows) -> None:
+        """Hand back every window page wholly below the window of each
+        live row of ``rows`` = [(row, committed length C)]: the row's next
+        query, at position C, sees keys from C - window + 1.  Host work
+        only; one span ``engine.window_free`` (args ``freed``, ``held``:
+        the window pages those rows hold after it, ``rows``: how many)."""
+        if self.w_pages is None:
+            return
+        with _span("engine.window_free") as sp:
+            freed = held = n = 0
+            for b, C in rows:
+                if b < 0 or b in self._retired:
+                    continue
+                freed += self.w_pages.release_below(b, C - self.window + 1)
+                held += self.w_pages.held(b)
+                n += 1
+            sp.set(freed=freed, held=held, rows=n)
+            trace.incr("engine.window_pages_freed", freed)
 
     def prompt_bucket(self, M: int) -> int:
         """Power-of-two bucket (min 8, capped at ``max_len``) for paged
@@ -411,10 +476,9 @@ class SpecEngine:
             allocated = []
             try:
                 for row in rows:
-                    self.t_pages.alloc_stream(row, Mb - 1)
-                    allocated.append((self.t_pages, row))
-                    self.d_pages.alloc_stream(row, Mb - 1)
-                    allocated.append((self.d_pages, row))
+                    for mgr in self._pools():
+                        mgr.alloc_stream(row, Mb - 1)
+                        allocated.append((mgr, row))
             except Exception:
                 for mgr, row in allocated:
                     mgr.free_stream(row)
@@ -434,6 +498,8 @@ class SpecEngine:
             else:
                 padded = prompts
             t_view = dict(self.t_cache, pages=self.t_pages.device_table(rows))
+            if self.w_pages is not None:
+                t_view["win_pages"] = self.w_pages.device_table(rows)
             d_view = dict(self.d_cache, pages=self.d_pages.device_table(rows))
             if sp is not trace.NULL_SPAN and self.device.type == "cuda":
                 events = (torch.cuda.Event(enable_timing=True),
@@ -449,8 +515,9 @@ class SpecEngine:
             self.d_cache = strip_view(d_view)
             if Mb > M:
                 for row in rows:
-                    self.t_pages.truncate(row, M - 1)
-                    self.d_pages.truncate(row, M - 1)
+                    for mgr in self._pools():
+                        mgr.truncate(row, M - 1)
+            self._release_window([(row, M - 1) for row in rows])
 
         # splice the new rows into the batched state (admission-time host
         # copies, outside the round's one fetch)
@@ -497,8 +564,8 @@ class SpecEngine:
         tracer = trace.active()
         with (trace.NULL_SPAN if tracer is None else
               tracer.span("engine.retire", cat="engine", args={"row": row})):
-            self.t_pages.free_stream(row)
-            self.d_pages.free_stream(row)
+            for mgr in self._pools():
+                mgr.free_stream(row)
             self._retired.add(row)
             self._free_rows.append(row)
             self._free_rows.sort()
@@ -520,14 +587,15 @@ class SpecEngine:
                     if frz[i]:
                         continue
                     pos_b = len(state.committed[b]) - 1
-                    grown.append((b, self.t_pages.length(b),
-                                  self.d_pages.length(b)))
+                    grown.append((b, [m.length(b) for m in self._pools()]))
                     self.t_pages.extend(b, min(pos_b + t_len, cap))
                     self.d_pages.extend(b, min(pos_b + d_len, cap))
+                    if self.w_pages is not None:
+                        self.w_pages.extend(b, min(pos_b + t_len, cap))
             except PagePoolExhausted:
-                for b, t_old, d_old in grown:
-                    self.t_pages.truncate(b, t_old)
-                    self.d_pages.truncate(b, d_old)
+                for b, old in grown:
+                    for mgr, n in zip(self._pools(), old):
+                        mgr.truncate(b, n)
                 raise
 
     def warmup(self, state: StreamState, buckets, vhat: int = 64):
@@ -576,11 +644,12 @@ class SpecEngine:
                                                 self.cache_dtype)
             pending = zeros(n, dtype=state.pending.dtype)
             f32 = torch.float32
+            w_pt = pt if self.w_pages is not None else None
             self._steps.draft(self.d_params, self.d_cache, pt, pending,
                               zeros(n), zeros(L, n, vhat, dtype=f32), L=L,
                               vhat=vhat, warm_kv=warm_d, run=False)
             self._steps.verify(
-                self.t_params, self.t_cache, pt, pending, zeros(n, L),
+                self.t_params, self.t_cache, pt, w_pt, pending, zeros(n, L),
                 zeros(n, L, dtype=f32) + 1, zeros(n, L, vhat),
                 zeros(n, L, vhat, dtype=f32) + 1 / vhat, zeros(n),
                 zeros(n) + L, zeros(n, L, dtype=f32), zeros(n, dtype=f32),
@@ -697,6 +766,8 @@ class SpecEngine:
                                    self.device)
         t_pt = (self.t_pages.device_table(row_list)
                 if self.cache_kind == "paged" else None)
+        w_pt = (self.w_pages.device_table(row_list)
+                if self.w_pages is not None else None)
         if not needs_state_rollback(self.target_cfg):
             # --- step 4: batched verification (LLM) ---
             # the target pass AND the accept test, one step (compiled: one
@@ -704,7 +775,7 @@ class SpecEngine:
             with _span("engine.verify_step",
                        {"B": n, "W": ticket.L + 1}) as sp:
                 res = VerifyResult(*self._steps.verify(
-                    self.t_params, self.t_cache, t_pt, ticket.pending,
+                    self.t_params, self.t_cache, t_pt, w_pt, ticket.pending,
                     draft_res.tokens, draft_res.probs, draft_res.q_idx,
                     draft_res.q_val, ticket.target_pos, draft_len, u_accept,
                     u_resid, bonus_gumbel))
@@ -782,8 +853,11 @@ class SpecEngine:
                     if self.cache_kind == "paged":
                         # speculative rejection hands pages straight back
                         new_len = len(state.committed[b]) - 1
-                        self.t_pages.truncate(b, new_len)
-                        self.d_pages.truncate(b, new_len)
+                        for mgr in self._pools():
+                            mgr.truncate(b, new_len)
+            if self.w_pages is not None:
+                self._release_window([(b, len(state.committed[b]) - 1)
+                                      for b in row_list if b >= 0])
         self.last_accepted = accepted if ticket.rows is None else None
         new_state = StreamState(pending=pend, target_pos=tpos,
                                 draft_pos=dpos, committed=state.committed)
@@ -867,6 +941,11 @@ class SpecEngine:
         and no fix-up runs.  Host syncs per round: 2 (scatter, or J = 1),
         3 (repair, J > 1).
         """
+        if self.window:
+            raise NotImplementedError(
+                "token-tree rounds of a target with sliding-window layers: "
+                "a tree node's key window would follow its depth, not its "
+                "cache slot, and the tree kernels have no key window")
         for role, cfg in (("target", self.target_cfg),
                           ("draft", self.draft_cfg)):
             # DecoderLM families only: the ancestor-masked window needs

@@ -109,17 +109,23 @@ def test_paged_attention_kernel_matches_plain(cuda, shape, dtype):
                                    rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("case", cases.PAGED_EDGE_CASES,
-                         ids=[c[0] for c in cases.PAGED_EDGE_CASES])
+EDGE_AND_WINDOW = cases.PAGED_EDGE_CASES + cases.PAGED_WINDOW_CASES
+
+
+@pytest.mark.parametrize("case", EDGE_AND_WINDOW,
+                         ids=[c[0] for c in EDGE_AND_WINDOW])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_at_the_edges_of_the_split(cuda, case, dtype):
     """bf16 splits the slot axis across blocks and merges in the last one:
     live slots all in one split, more splits than live slots, rows of
-    length 0 and all-(-1) rows (0), lengths 1, and the serving tables."""
+    length 0 and all-(-1) rows (0), lengths 1, and the serving tables; a
+    key window, whose split starts at each tile's lowest key and never
+    reads the freed (-1) slots below it."""
     _, shape, extra = case
+    w = {"window": extra.get("window", 0)}
     args = paged_case(*shape, dtype=dtype, device=cuda, **extra)
-    got = pa.paged_attention_cuda(*args)
-    want = cases.paged_attention_held(*args)
+    got = pa.paged_attention_cuda(*args, **w)
+    want = cases.paged_attention_held(*args, **w)
     torch.cuda.synchronize()
     rtol, atol = cases.PAGED_TOL[dtype]
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
@@ -127,7 +133,7 @@ def test_paged_attention_at_the_edges_of_the_split(cuda, case, dtype):
     T = args[0].shape[1]
     dead = ~(pt >= 0).any(1) | (ln + T - 1 <= 0)
     assert not got[dead].any()
-    again = pa.paged_attention_cuda(*args)      # the tickets were left at 0
+    again = pa.paged_attention_cuda(*args, **w)  # the tickets were left at 0
     assert torch.equal(got, again)
 
 
